@@ -1,0 +1,111 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+The kernels have a plain C interface and are loaded with ctypes; the
+build is one ``nvcc`` call over every ``csrc/*.cu`` into a shared
+library under ``ntpoly_tpu_torch/_build/``, named by a hash of the
+sources, so an edited source rebuilds and an unchanged one is reused.
+Nothing is built at import: :func:`library` builds on first use, and a
+failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+# (name, argtypes); every entry returns a cudaError_t as int
+_SIGNATURES = {
+    "ntp_spgemm_general": (_P,) * 7 + (_I,) * 5 + (_D, _D, _P),
+    "ntp_spgemm_band": (_P,) * 7 + (_I,) * 6 + (_D, _D, _P),
+}
+
+_lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, PATH, or the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc_command(output: Path) -> list[str]:
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(output),
+            *cu]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libntp_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash is not built yet."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        part = Path(tmp) / out.name
+        proc = subprocess.run(nvcc_command(part), capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed building the SpGEMM kernels:\n"
+                + proc.stdout + proc.stderr)
+        os.replace(part, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+        lib.ntp_error_string.argtypes = [ctypes.c_int]
+        lib.ntp_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code:
+        msg = library().ntp_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

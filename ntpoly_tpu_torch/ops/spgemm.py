@@ -1,0 +1,427 @@
+"""The local block-sparse SpGEMM: structure pass, kernels, entry point.
+
+Counterpart of ``ntpoly_tpu/ops/spgemm_pallas.py``: C = alpha * A @ B
+with threshold truncation, at block granularity, on one shard, split
+into an integer *structure pass* (plain torch) and a *numeric pass*
+(one of two hand-written CUDA kernels, ``csrc/``):
+
+  * ``spgemm_general``: every candidate product goes to the output slot
+    ``structure_plan`` assigned it (rank form: slot g holds the g-th
+    smallest output col id);
+  * ``spgemm_band``: for banded operands, offset form (slot t holds col
+    ``occ0 + t``), addressed arithmetically from ``band_plan``.
+
+Each kernel has a plain PyTorch version beside it with the same inputs
+and outputs (``*_plain``).  The wrappers take the plain version only
+for tensors on the CPU; for a CUDA tensor they launch the kernel or
+raise.  ``launches`` counts kernel launches per wrapper.
+
+Format contract: A [R, KA] slots whose col ids index block-rows of B;
+B [NBK, KB] slots with global block-col ids; C [R, k_out] with global
+col ids, ascending and unique, holes (EMPTY, zero block) where a whole
+block fell below the threshold.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import EMPTY
+
+Tensor = torch.Tensor
+
+# kernel launches per wrapper (reset with reset_launches)
+launches = {"spgemm_general": 0, "spgemm_band": 0}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
+
+
+# ----------------------------------------------------------------------------
+# structure pass
+# ----------------------------------------------------------------------------
+
+def _candidate_ids(a_cols: Tensor, b_cols: Tensor) -> Tensor:
+    """[R, KA*KB] output block-col id of every candidate product (EMPTY
+    for unused A slots and B slots)."""
+    R, KA = a_cols.shape
+    valid_a = a_cols != EMPTY
+    ks = torch.where(valid_a, a_cols, 0).long()
+    ids = torch.where(valid_a[:, :, None], b_cols[ks],
+                      b_cols.new_full((), EMPTY))
+    return ids.reshape(R, KA * b_cols.shape[-1])
+
+
+def _sorted_ranks(ids: Tensor):
+    """Sort each row of candidate ids: (sorted ids, their order, first-
+    occurrence flags, ranks among distinct valid ids) in sorted order."""
+    sids, order = torch.sort(ids, dim=-1, stable=True)
+    prev = torch.cat([sids.new_full(sids.shape[:-1] + (1,), -1),
+                      sids[..., :-1]], dim=-1)
+    first = (sids != prev) & (sids != EMPTY)
+    rank = torch.cumsum(first.to(torch.int32), dim=-1) - 1
+    return sids, order, first, rank
+
+
+def structural_fill(a_cols: Tensor, b_cols: Tensor) -> Tensor:
+    """Exact per-row structural fill of C = A @ B: the number of distinct
+    output block-columns of each row before threshold pruning."""
+    ids = _candidate_ids(a_cols, b_cols)
+    return _sorted_ranks(ids)[2].sum(dim=-1, dtype=torch.int32)
+
+
+def structure_plan(a_cols: Tensor, b_cols: Tensor, k_out: int
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The output pattern of C = A @ B from col ids alone.
+
+    Returns
+      slot   [R, KA*KB] int32 — output slot of each candidate product
+                                (>= k_out means dropped: overflow or
+                                EMPTY, whose slot is KA*KB)
+      occ    [R, k_out] int32 — ascending unique output col ids
+      ucnt   [R]        int32 — exact structural fill-in per row
+
+    The slot of a candidate is its rank among the row's distinct ids, as
+    in the reference; here the ranks come from one sort per row.
+    """
+    ids = _candidate_ids(a_cols, b_cols)
+    R, M = ids.shape
+    sids, order, first, rank = _sorted_ranks(ids)
+    slot = torch.empty_like(rank).scatter_(1, order, rank)
+    slot = torch.where(ids != EMPTY, slot, slot.new_full((), M))
+    ucnt = first.sum(dim=-1, dtype=torch.int32)
+    occ = ids.new_full((R, k_out + 1), EMPTY)
+    tgt = torch.where(first & (rank < k_out), rank,
+                      rank.new_full((), k_out)).long()
+    occ.scatter_(1, tgt, sids)
+    return slot.to(torch.int32), occ[:, :k_out], ucnt
+
+
+def band_plan(a_cols: Tensor, b_cols: Tensor, k_out: int,
+              span: int | None = None):
+    """Offset-form output plan for the band kernel.
+
+    When every referenced B row is arithmetically contiguous (all its
+    valid cols satisfy col(t) = base + t; EMPTY holes anywhere are
+    fine), the product of A slot s lands at output offset gg0 = base
+    (acol_s) - occ0, its KB column blocks at gg0..gg0+KB-1.  ``span``
+    (default k_out) is the width of the computed output; ``ok`` requires
+    every row's data extent to fit it.
+
+    Returns (gg0 [R, KA] int32, occ0 [R] int32, ok bool tensor).
+    """
+    NBK, KB = b_cols.shape
+    span = k_out if span is None else span
+    width = min(span, k_out)
+    big = torch.tensor(EMPTY, dtype=torch.int64, device=a_cols.device)
+    bc = b_cols.long()
+    t_idx = torch.arange(KB, device=bc.device)
+    validb = b_cols != EMPTY
+    base_all = torch.where(validb, bc - t_idx, big)
+    base_min = base_all.amin(dim=1)
+    base_max = torch.where(validb, bc - t_idx, -1).amax(dim=1)
+    has_b = validb.any(dim=1)
+    b_ok = (~has_b | (base_min == base_max)).all()
+    base = torch.where(has_b, base_min, 0)
+    # actual data extent of each B row (last valid slot + 1), so that
+    # capacity-padded rows are not flagged
+    ext = torch.where(validb, t_idx + 1, 0).amax(dim=1)
+    valida = a_cols != EMPTY
+    ks = torch.where(valida, a_cols, 0).long()
+    rbase = torch.where(valida, base[ks], big)
+    occ0 = rbase.amin(dim=1)
+    occ0 = torch.where(occ0 == big, 0, occ0)
+    hi = torch.where(valida, rbase + ext[ks], -big).amax(dim=1)
+    span_ok = (~valida.any(dim=1) | (hi - occ0 <= width)).all()
+    gg0 = torch.clamp(torch.where(valida, rbase - occ0[:, None], 0),
+                      0, max(width - 1, 0))
+    return (gg0.to(torch.int32), occ0.to(torch.int32), b_ok & span_ok)
+
+
+def _v4_span(ka: int, kb: int, k_out: int) -> int:
+    """Width (blocks) of the band kernel's computed output: a contiguous
+    band product spans at most KA + KB - 1 output blocks."""
+    return min(k_out, ka + kb - 1)
+
+
+# Regime gates of the band kernel, kept from the reference so that the
+# arm chosen (and so the output form) matches it slot for slot.  The
+# TPU-only gates (bs % 128, scalar and vector memory budgets, grid
+# steps) have no counterpart here.
+V3_MIN_ROWS = 128
+V3_MAX_KA = 8
+
+
+def _v4_pick(ka: int, kb: int, k_out: int, r: int, nbk: int):
+    """(g_rows, window) for the band kernel, or (None, None) when the
+    shape is outside its regime.  g_rows and window only define the
+    group windows of the runtime check (``_v3_window``)."""
+    if r < V3_MIN_ROWS or ka > V3_MAX_KA:
+        return None, None
+    if kb > k_out:
+        return None, None
+    for g in (16, 8, 4, 2):
+        w = ka + g - 1
+        if nbk < w or r < g:
+            continue
+        return g, w
+    return None, None
+
+
+def _v3_window(a_cols: Tensor, g_rows: int):
+    """Per-group window starts and the max window width from col ids:
+    wlo[g] = min valid col id of group g, width = max over groups of
+    (max - min + 1).  Returns (wlo int32 [ng], width 0-d tensor)."""
+    R, KA = a_cols.shape
+    ng = R // g_rows
+    grp = a_cols.reshape(ng, g_rows * KA).long()
+    valid = grp != EMPTY
+    lo = torch.where(valid, grp, EMPTY).amin(dim=1)
+    hi = torch.where(valid, grp, -1).amax(dim=1)
+    width = torch.where(valid.any(dim=1), hi - lo + 1, 0).amax()
+    return torch.where(lo == EMPTY, 0, lo).to(torch.int32), width
+
+
+def eligible(dtype, bs: int) -> bool:
+    """Can the kernels run this shape: a real f32/f64 dtype and a block
+    size that is a multiple of 8 up to 128."""
+    return (dtype in (torch.float32, torch.float64) and bs % 8 == 0
+            and 0 < bs <= 128)
+
+
+# ----------------------------------------------------------------------------
+# plain versions of the kernels
+# ----------------------------------------------------------------------------
+
+def _masked_b(a_col: Tensor, b_cols: Tensor, b_blocks: Tensor, t: int):
+    """B block (row a_col[r], slot t) per row r, zero where A's slot or
+    B's slot is EMPTY.  -> ([R, bs, bs], valid [R])."""
+    valid = a_col != EMPTY
+    ks = torch.where(valid, a_col, 0).long()
+    ok = valid & (b_cols[ks, t] != EMPTY)
+    blk = b_blocks[ks, t]
+    return blk * ok[:, None, None].to(blk.dtype), ok
+
+
+def _epilogue(acc: Tensor, alpha: float, threshold: float):
+    x = acc * torch.as_tensor(alpha, dtype=acc.dtype)
+    x = torch.where(x.abs() > threshold, x, x.new_zeros(()))
+    return x, x.abs().sum(dim=(-1, -2))
+
+
+def _plain(a_cols, a_blocks, b_cols, b_blocks, slot_of, cut, k_out,
+           alpha, threshold):
+    """Output slot slot_of(s, t)[r] of row r receives
+    A[r, s] @ B[acols[r, s], t] unless the slot is >= cut; then the
+    prune epilogue.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
+    R, KA = a_cols.shape
+    KB = b_cols.shape[1]
+    bs = a_blocks.shape[-1]
+    acc = a_blocks.new_zeros((R * (k_out + 1), bs, bs))
+    rows = torch.arange(R, device=a_cols.device) * (k_out + 1)
+    for s in range(KA):
+        for t in range(KB):
+            bblk, ok = _masked_b(a_cols[:, s], b_cols, b_blocks, t)
+            g = slot_of(s, t)
+            g = torch.where(ok & (g < cut), g, k_out)
+            acc.index_add_(0, rows + g, torch.bmm(a_blocks[:, s], bblk))
+    acc = acc.reshape(R, k_out + 1, bs, bs)[:, :k_out]
+    return _epilogue(acc, alpha, threshold)
+
+
+def spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks, plan, *,
+                         k_out: int, alpha: float, threshold: float):
+    """Plain version of the general kernel: output slot
+    plan[r, s*KB + t] receives A[r, s] @ B[acols[r, s], t] (dropped when
+    >= k_out), then the prune epilogue.  -> (blocks [R, k_out, bs, bs],
+    norms [R, k_out])."""
+    KB = b_cols.shape[1]
+    return _plain(a_cols, a_blocks, b_cols, b_blocks,
+                  lambda s, t: plan[:, s * KB + t].long(), k_out, k_out,
+                  alpha, threshold)
+
+
+def spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0, *,
+                      k_out: int, span: int, alpha: float,
+                      threshold: float):
+    """Plain version of the band kernel: output slot t < span of row r
+    receives A[r, s] @ B[acols[r, s], t - gg0[r, s]] for every valid A
+    slot s with 0 <= t - gg0 < KB; slots >= span are zero.
+    -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
+    return _plain(a_cols, a_blocks, b_cols, b_blocks,
+                  lambda s, t: gg0[:, s].long() + t, span, k_out,
+                  alpha, threshold)
+
+
+# ----------------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------------
+
+def _check_operands(a_cols, a_blocks, b_cols, b_blocks, idx):
+    """Device, dtype, shape and layout checks before a kernel launch."""
+    dev = a_blocks.device
+    for name, x in (("a_cols", a_cols), ("b_cols", b_cols),
+                    ("b_blocks", b_blocks), ("index", idx)):
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, A on {dev}")
+    for name, x in (("a_cols", a_cols), ("b_cols", b_cols),
+                    ("index", idx)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if a_blocks.dtype != b_blocks.dtype or not eligible(
+            a_blocks.dtype, a_blocks.shape[-1]):
+        raise TypeError(
+            f"kernels take matching float32/float64 blocks with bs a "
+            f"multiple of 8 up to 128; got {a_blocks.dtype}, "
+            f"{b_blocks.dtype}, bs={a_blocks.shape[-1]}")
+    if b_blocks.shape[-1] != a_blocks.shape[-1]:
+        raise ValueError("A and B block sizes differ")
+    return [x.contiguous() for x in (a_cols, a_blocks, b_cols, b_blocks,
+                                     idx)]
+
+
+def _launch(entry, dtype, args, ints, alpha, threshold, what):
+    from . import _cuda
+    lib = _cuda.library()
+    fn = getattr(lib, entry + ("_f32" if dtype == torch.float32
+                               else "_f64"))
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fn(*[x.data_ptr() for x in args], *ints, float(alpha),
+              float(threshold), stream)
+    _cuda.check(code, what)
+    launches[entry[4:]] += 1
+
+
+def spgemm_general(a_cols, a_blocks, b_cols, b_blocks, plan, *,
+                   k_out: int, alpha: float, threshold: float):
+    """General kernel (``csrc/spgemm_general.cu``) on CUDA tensors, its
+    plain version on CPU tensors."""
+    if a_blocks.device.type == "cpu":
+        return spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks,
+                                    plan, k_out=k_out, alpha=alpha,
+                                    threshold=threshold)
+    if a_blocks.device.type != "cuda":
+        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    ac, ab, bc, bb, pl = _check_operands(a_cols, a_blocks, b_cols,
+                                         b_blocks, plan)
+    R, KA = ac.shape
+    KB = bc.shape[1]
+    bs = ab.shape[-1]
+    if pl.shape != (R, KA * KB):
+        raise ValueError(f"plan shape {tuple(pl.shape)} != {(R, KA * KB)}")
+    out = ab.new_empty((R, k_out, bs, bs))
+    nrm = ab.new_empty((R, k_out))
+    _launch("ntp_spgemm_general", ab.dtype, (ac, ab, bc, bb, pl, out, nrm),
+            (R, KA, KB, k_out, bs), alpha, threshold, "spgemm_general")
+    return out, nrm
+
+
+def spgemm_band(a_cols, a_blocks, b_cols, b_blocks, gg0, *, k_out: int,
+                span: int, alpha: float, threshold: float):
+    """Band kernel (``csrc/spgemm_band.cu``) on CUDA tensors, its plain
+    version on CPU tensors."""
+    if a_blocks.device.type == "cpu":
+        return spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0,
+                                 k_out=k_out, span=span, alpha=alpha,
+                                 threshold=threshold)
+    if a_blocks.device.type != "cuda":
+        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    ac, ab, bc, bb, g0 = _check_operands(a_cols, a_blocks, b_cols,
+                                         b_blocks, gg0)
+    R, KA = ac.shape
+    KB = bc.shape[1]
+    bs = ab.shape[-1]
+    if g0.shape != ac.shape:
+        raise ValueError(f"gg0 shape {tuple(g0.shape)} != {(R, KA)}")
+    out = ab.new_empty((R, k_out, bs, bs))
+    nrm = ab.new_empty((R, k_out))
+    _launch("ntp_spgemm_band", ab.dtype, (ac, ab, bc, bb, g0, out, nrm),
+            (R, KA, KB, k_out, span, bs), alpha, threshold, "spgemm_band")
+    return out, nrm
+
+
+# ----------------------------------------------------------------------------
+# entry point
+# ----------------------------------------------------------------------------
+
+PRECISIONS = ("highest", "high", "default", "bf16")
+
+
+def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
+           b_blocks: Tensor, *, k_out: int, threshold=0.0, alpha=1.0,
+           precision: str = "highest", band_mode: str = "auto"
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """C = alpha * A @ B, threshold-filtered, on one shard.
+
+    Returns (col_ids [R, k_out], blocks [R, k_out, bs, bs], ucnt [R] —
+    exact structural fill per row, so ``ucnt > k_out`` flags overflow),
+    with ``spgemm_pallas``'s contract: on overflow the lowest col ids are
+    kept; slots whose block flushed to zero are EMPTY in place.
+
+    band_mode: 'auto' runs the band kernel when the band plan holds and
+    the general kernel otherwise; 'force' runs only the band kernel (the
+    general one outside its regime, with a warning), and a violated band
+    assumption poisons ucnt to EMPTY; 'off' never uses the band kernel.
+
+    precision: 'highest', 'high' and 'default' all run exact products
+    (float32 FMA for float32 blocks); 'bf16' rounds float32 operands to
+    bfloat16 first and accumulates in float32.  alpha and threshold are
+    rounded to float32 first, as the reference does.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    if band_mode not in ("auto", "force", "off"):
+        raise ValueError(f"band_mode {band_mode!r}")
+    R, KA = a_cols.shape
+    NBK, KB = b_cols.shape
+    dt = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
+    if dt.is_complex:
+        raise TypeError("the SpGEMM kernels are real-only")
+    plan, occp, ucnt = structure_plan(a_cols, b_cols, k_out)
+    ab, bb = a_blocks.to(dt), b_blocks.to(dt)
+    if precision == "bf16" and dt == torch.float32:
+        ab = ab.to(torch.bfloat16).to(dt)
+        bb = bb.to(torch.bfloat16).to(dt)
+    alpha = float(np.float32(alpha))
+    threshold = float(np.float32(threshold))
+    args = (a_cols, ab, b_cols, bb)
+
+    g_rows, wv4 = _v4_pick(KA, KB, k_out, R, NBK)
+    if band_mode == "off":
+        g_rows = None
+    if band_mode == "force" and g_rows is None:
+        warnings.warn(
+            f"spgemm(band_mode='force'): shape R={R}, KA={KA}, KB={KB}, "
+            f"k_out={k_out} is outside the band kernel's regime; running "
+            "the general kernel instead")
+    occ_used = occp
+    if g_rows is not None:
+        pad = -R % g_rows
+        ac_p = torch.cat([a_cols, a_cols.new_full((pad, KA), EMPTY)])
+        _, width = _v3_window(ac_p, g_rows)
+        span = _v4_span(KA, KB, k_out)
+        gg0, occ0, band_ok = band_plan(a_cols, b_cols, k_out, span=span)
+        use_band = (width <= wv4) & band_ok
+        # 'auto' reads the choice back to the host (one scalar per
+        # multiply) so that only one of the two kernels launches
+        if band_mode == "force" or bool(use_band):
+            cb, nm = spgemm_band(*args, gg0, k_out=k_out, span=span,
+                                 alpha=alpha, threshold=threshold)
+            occ_used = occ0[:, None] + torch.arange(
+                k_out, dtype=torch.int32, device=occ0.device)
+            if band_mode == "force":
+                ucnt = torch.where(use_band, ucnt,
+                                   ucnt.new_full((), EMPTY))
+        else:
+            cb, nm = spgemm_general(*args, plan, k_out=k_out, alpha=alpha,
+                                    threshold=threshold)
+    else:
+        cb, nm = spgemm_general(*args, plan, k_out=k_out, alpha=alpha,
+                                threshold=threshold)
+    cc = torch.where(nm > 0, occ_used, occ_used.new_full((), EMPTY))
+    return cc, cb, ucnt
