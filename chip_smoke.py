@@ -11,20 +11,32 @@ Phases, one line each with its seconds:
 3. kernels: each kernel against its plain PyTorch version on seeded
    random block-ELL cases (holes, a ragged row, an empty row, alpha !=
    1, threshold > 0, an overflowing capacity, a band violation, a
-   capacity-padded span), f32 and f64, bs 8, 32 and 128; then both
-   kernels and their plain versions timed at the shapes the main path
-   gives them.
-4. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
+   capacity-padded span), f32 and f64, bs 8, 32 and 128: the band and
+   general kernels through the entry point, the stream and window
+   kernels through their wrappers (the window kernel also with bf16
+   operands, and on the scattered case, whose col ids leave their
+   group's window and are clamped); then the band and general kernels
+   and their plain versions timed at the shapes the TRS4 path gives
+   them.
+4. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
+   full size, 2^19 rows of the chain at bs 128, every arm timed; then
+   on its operand every kernel arm (general, stream, window and band
+   at each tier) held against its plain version on the same inputs,
+   the general, stream and window kernels against one another, the
+   `matmul` arm against the band kernel's plain version, and the
+   plain versions timed.
+5. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
    kernel on the card, and through the plain versions on the CPU.
-5. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
+6. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
    the band kernel, with its certificates (idempotency, commutator,
    electron count).
 
-The main path whose kernel launches are counted is the card's TRS4
-solve of phases 4 and 5: the counts are reset just before each solve
-and read just after it, and the `kernels` line reports their sum.
-Any failed phase ends the run with a non-zero exit code.  The last
-line is the result:
+Kernel launches are counted on each kernel's own path, with the counts
+reset just before the path and read just after it: the band and
+general kernels in the card's TRS4 solves of phases 5 and 6 (the
+`kernels` line reports their sum), the stream and window kernels in the
+low-K profile of phase 4.  Any failed phase ends the run with a
+non-zero exit code.  The last line is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -41,10 +53,12 @@ import time
 import torch
 
 from ntpoly_tpu_torch.config import EMPTY
+from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import algebra as alg
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
+from ntpoly_tpu_torch.profiling import lowk
 from ntpoly_tpu_torch.solvers import density
 from ntpoly_tpu_torch.solvers.parameters import SolverParameters
 from ntpoly_tpu_torch.systems import gapped_fn
@@ -56,6 +70,12 @@ KERNELS = {
     "spgemm_general": dict(
         source="ntpoly_tpu_torch/csrc/spgemm_general.cu",
         replaces="ntpoly_tpu/ops/spgemm_pallas.py:144"),
+    "spgemm_stream": dict(
+        source="ntpoly_tpu_torch/csrc/spgemm_stream.cu",
+        replaces="ntpoly_tpu/ops/spgemm_pallas.py:223"),
+    "spgemm_window": dict(
+        source="ntpoly_tpu_torch/csrc/spgemm_window.cu",
+        replaces="ntpoly_tpu/ops/spgemm_pallas.py:288"),
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -148,7 +168,7 @@ def _errors(got, want, threshold=0.0):
     one side flushed and the other kept counts as agreeing when it lies
     within rounding of the threshold: the flush decision there depends
     on the order of the sums."""
-    got, want = got.double().cpu(), want.double().cpu()
+    got, want = got.double(), want.double().to(got.device)
     diff = (got - want).abs()
     edge = (((got == 0) != (want == 0))
             & (torch.maximum(got.abs(), want.abs())
@@ -188,7 +208,7 @@ def phase_kernels(errs):
     the CPU (plain versions): col ids and fill counts exactly, blocks
     to the dtype's tolerance relative to max |C|."""
     gen = torch.Generator().manual_seed(20261016)
-    used = {"spgemm_general": 0, "spgemm_band": 0}
+    used = {k: 0 for k in KERNELS}
     for dtype in (torch.float32, torch.float64):
         for bs in (8, 32, 128):
             for name, (ac, ab), (bc, bb), k_out, alpha, thr in \
@@ -219,22 +239,57 @@ def phase_kernels(errs):
                         raise AssertionError(
                             f"kernel case {name}/{mode} bs={bs} {dtype} "
                             "disagrees with the plain version")
+                for kern in panel_kernel_cases(
+                        errs, (name, (ac, ab), (bc, bb), k_out, alpha, thr),
+                        dtype, bs):
+                    used[kern] += 1
     for k, n in used.items():
         if not n:
             raise AssertionError(f"no case launched {k}")
 
 
-def _time(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def panel_kernel_cases(errs, case, dtype, bs):
+    """The stream and window kernels on one case (B as a panel), on the
+    card against their plain versions on the CPU: occupancy (norms > 0)
+    exactly, blocks to the output dtype's tolerance relative to max |C|.
+    The window kernel runs at 'highest', and for f32 also at 'bf16' on
+    the operands rounded to bf16.  -> the kernels launched."""
+    name, (ac, ab), (bc, bb), k_out, alpha, thr = case
+    plan = sp.structure_plan(ac, bc, k_out)[0]
+    panel = sp.b_panel(bc, bb)
+    (rows, ka), (nbk, kb) = ac.shape, bc.shape
+    kw = dict(kb=kb, k_out=k_out, alpha=alpha, threshold=thr)
+    runs = [("spgemm_stream", "", (ac, ab, panel, plan),
+             lambda *x: sp.spgemm_stream(*x, **kw))]
+    g_rows, w = sp._v3_pick(ka, kb, k_out, rows, nbk)
+    assert g_rows is not None and rows % g_rows == 0
+    wlo, width = sp._v3_window(ac, g_rows)
+    clamp = " clamped" if int(width) > w else ""
+    tiers = [("highest", ab, panel)]
+    if dtype == torch.float32:
+        tiers.append(("bf16", ab.to(torch.bfloat16),
+                      panel.to(torch.bfloat16)))
+    for prec, a_in, p_in in tiers:
+        runs.append(("spgemm_window", f" {prec}{clamp}",
+                     (ac, a_in, p_in, plan, wlo),
+                     lambda *x, p=prec: sp.spgemm_window(
+                         *x, g_rows=g_rows, w=w, precision=p, **kw)))
+    for kern, label, args, call in runs:
+        before = sp.launches[kern]
+        kb_, kn = call(*(x.cuda() for x in args))
+        torch.cuda.synchronize()
+        pb, pn = call(*args)
+        if sp.launches[kern] != before + 1:
+            raise AssertionError(f"{kern} did not launch exactly once")
+        aerr, err = _errors(kb_, pb, thr)
+        ok = err <= TOL[pb.dtype] and torch.equal(kn.cpu() > 0, pn > 0)
+        errs[kern] = max(errs[kern], aerr)
+        print(f"  {str(dtype)[6:]} bs={bs} {name} [{kern}{label}]: "
+              f"max rel err {err:.2e}{'' if ok else '  MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{kern}{label} on {name} bs={bs} "
+                                 f"{dtype} disagrees with its plain version")
+    return [r[0] for r in runs]
 
 
 def phase_timing(errs, times):
@@ -272,10 +327,118 @@ def phase_timing(errs, times):
             raise AssertionError(f"{name} at {shape}: error {err:.2e} "
                                  f"> {tol:.2e}")
         errs[name] = max(errs[name], aerr)
-        ms, pms = _time(kern, reps), _time(plain, reps)
+        ms, pms = lowk.cuda_time(kern, reps), lowk.cuda_time(plain, reps)
         times[name] = (ms, pms)
         print(f"  {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
               f"max rel err {err:.2e} (tolerance {tol:.1e})")
+
+
+def lowk_plains(op):
+    """arm -> (its kernel, the kernel's plain version on the arm's own
+    inputs) for every kernel arm of the low-K profile."""
+    ac, ab = op.cols, op.blocks
+    ka = ac.shape[1]
+    ac3, ab3, plan3 = op.padded()
+    kw = dict(k_out=op.k_out, alpha=1.0, threshold=op.threshold)
+    ab3_bf16, panel_bf16 = ab3.to(torch.bfloat16), op.panel.to(torch.bfloat16)
+    ab_bf16 = ab.to(torch.bfloat16).to(torch.float32)
+
+    def window(blocks, panel, precision):
+        return lambda: sp.spgemm_window_plain(
+            ac3, blocks, panel, plan3, op.wlo, kb=ka, g_rows=op.g_rows,
+            w=op.w, precision=precision, **kw)
+
+    def band(blocks):
+        return lambda: sp.spgemm_band_plain(ac, blocks, ac, blocks, op.gg0,
+                                            span=op.span, **kw)
+
+    return {
+        "general": ("spgemm_general", lambda: sp.spgemm_general_plain(
+            ac, ab, ac, ab, op.plan, **kw)),
+        "stream": ("spgemm_stream", lambda: sp.spgemm_stream_plain(
+            ac, ab, op.panel, op.plan, kb=ka, **kw)),
+        "window_highest": ("spgemm_window", window(ab3, op.panel, "highest")),
+        "window_high": ("spgemm_window", window(ab3, op.panel, "high")),
+        "window_bf16": ("spgemm_window", window(ab3_bf16, panel_bf16,
+                                                "bf16")),
+        "band_highest": ("spgemm_band", band(ab)),
+        "band_high": ("spgemm_band", band(ab)),
+        "band_bf16": ("spgemm_band", band(ab_bf16)),
+    }
+
+
+def phase_lowk(errs, times):
+    """The low-K profile at full size on the card, with the launches of
+    each kernel counted over its run; then, on its operand, every
+    kernel arm against its plain version on the same inputs (also on
+    the card), the rank-form arms (general, stream, window 'highest'
+    and 'high') against one another, the `matmul` arm against the band
+    kernel's plain version slot by col id, and the plain versions
+    timed.  -> the profile's launch counts."""
+    op = lowk.operand("cuda")
+    sp.reset_launches()
+    res = lowk.profile("cuda", op=op)
+    counts = dict(sp.launches)
+    print(f"  shape {json.dumps(res['shape'])}, {res['products']} block "
+          f"products, {res['flops'] / 1e9:.1f} GFLOP, "
+          f"{res['bytes'] / 1e9:.2f} GB least traffic, launches {counts}")
+    for name, ms in res["ms"].items():
+        print(f"  {name}: {ms:.3f} ms")
+    rows, ka = op.cols.shape
+    arms = lowk.arms(op)
+    # the bound of a sum of depth = KA * bs products in float32, as at
+    # the timed shapes of the timing phase (the 'bf16' arms accumulate
+    # their bfloat16 inputs in float32)
+    depth = ka * op.h.bs
+    tol = max(TOL[torch.float32], depth * torch.finfo(torch.float32).eps / 2)
+    rank_form = ("general", "stream", "window_highest", "window_high")
+    first = None
+    plains = lowk_plains(op)
+    for arm, (kern, plain) in plains.items():
+        blk, nrm = (x[:rows] for x in arms[arm]())
+        pb, pn = (x[:rows] for x in plain())
+        torch.cuda.synchronize()
+        aerr, err = _errors(blk, pb, op.threshold)
+        ok = err <= tol and torch.equal(nrm > 0, pn > 0)
+        same = ""
+        if arm in rank_form and first is None:
+            first = (arm, blk, nrm)
+        elif arm in rank_form:
+            ferr = _errors(blk, first[1], op.threshold)[1]
+            bits = torch.equal(blk, first[1]) and torch.equal(nrm, first[2])
+            ok = ok and ferr <= tol and torch.equal(nrm > 0, first[2] > 0)
+            same = (f", vs {first[0]}: max rel err {ferr:.2e}, "
+                    f"{'bit for bit' if bits else 'not bit for bit'}")
+        errs[kern] = max(errs[kern], aerr)
+        del blk, nrm, pb, pn
+        pms = lowk.cuda_time(plain, 3)
+        if arm in ("stream", "window_highest"):
+            times[kern] = (res["ms"][arm], pms)
+        print(f"  {arm} [{kern}]: kernel {res['ms'][arm]:.3f} ms, plain "
+              f"{pms:.3f} ms, vs plain max rel err {err:.2e} (tolerance "
+              f"{tol:.1e}){same}{'' if ok else '  MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{arm} [{kern}] disagrees with its plain "
+                                 "version on the low-K operand")
+    del first
+    # matmul ('auto', band kernel at 'high') against the band plain
+    # version, each side's blocks gathered onto the other's col ids
+    mm = arms["matmul"]()
+    mc, mb = mm.col_ids[0], mm.blocks[0]
+    occ0 = sp.band_plan(op.cols, op.cols, op.k_out, span=op.span)[1]
+    pc = occ0[:, None] + torch.arange(op.k_out, dtype=occ0.dtype,
+                                      device=occ0.device)
+    pb = plains["band_high"][1]()[0]
+    torch.cuda.synchronize()
+    aerr, err = _errors(mb, bell.align(mc, pc, pb), op.threshold)
+    err = max(err, _errors(bell.align(pc, mc, mb), pb, op.threshold)[1])
+    errs["spgemm_band"] = max(errs["spgemm_band"], aerr)
+    print(f"  matmul [spgemm_band]: vs band plain max rel err {err:.2e} "
+          f"(tolerance {tol:.1e})")
+    if err > tol:
+        raise AssertionError("the matmul arm disagrees with the band "
+                             "kernel's plain version on the low-K operand")
+    return counts
 
 
 def solve(h, isq, nel, params):
@@ -381,15 +544,19 @@ def main() -> int:
     times = {}
     run("kernels", phase_kernels, errs)
     run("timing", phase_timing, errs, times)
-    # the main path: each card solve counts its own launches
+    # each kernel's own path counts its launches: the low-K profile for
+    # the stream and window kernels, the card solves for the others
+    low = run("lowk", phase_lowk, errs, times)
     parity = run("parity", phase_parity)
     flagship = run("flagship", phase_flagship)
-    counts = {k: parity[k] + flagship[k] for k in KERNELS}
-    print(f"main-path launches: {counts} (parity solve {parity}, "
-          f"flagship solve {flagship})")
+    counts = {k: parity[k] + flagship[k] for k in ("spgemm_band",
+                                                   "spgemm_general")}
+    counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
+    print(f"launches on each kernel's path: {counts} (parity solve "
+          f"{parity}, flagship solve {flagship}, low-K profile {low})")
     for name, n in counts.items():
         if not n:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{name} never launched on its path")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=counts[name], max_abs_err=errs[name],
                     ms=times[name][0], plain_ms=times[name][1])

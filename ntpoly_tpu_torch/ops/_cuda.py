@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-The kernels have a plain C interface and are loaded with ctypes; the
-build is one ``nvcc`` call over every ``csrc/*.cu`` into a shared
-library under ``ntpoly_tpu_torch/_build/``, named by a hash of the
-sources, so an edited source rebuilds and an unchanged one is reused.
-Nothing is built at import: :func:`library` builds on first use, and a
-failed build raises.
+The kernels have a plain C interface and are loaded with ctypes.  The
+build compiles every ``csrc/*.cu`` with its own ``nvcc`` process, all
+started together, and links the objects into one shared library under
+``ntpoly_tpu_torch/_build/``, named by a hash of the sources, so an
+edited source rebuilds and an unchanged one is reused.  Nothing is
+built at import: :func:`library` builds on first use, and a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -22,15 +23,20 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# (name, argtypes); every entry returns a cudaError_t as int
+_REAL = ("_f32", "_f64")
+# name -> (argtypes, dtype suffixes of its instances); every entry
+# returns a cudaError_t as int
 _SIGNATURES = {
-    "ntp_spgemm_general": (_P,) * 7 + (_I,) * 5 + (_D, _D, _P),
-    "ntp_spgemm_band": (_P,) * 7 + (_I,) * 6 + (_D, _D, _P),
+    "ntp_spgemm_general": ((_P,) * 7 + (_I,) * 5 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_band": ((_P,) * 7 + (_I,) * 6 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_stream": ((_P,) * 6 + (_I,) * 6 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_window": ((_P,) * 7 + (_I,) * 8 + (_D, _D, _P),
+                          _REAL + ("_bf16",)),
 }
 
 _lib = None
@@ -60,10 +66,16 @@ def nvcc_path() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(output: Path) -> list[str]:
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(output),
-            *cu]
+def nvcc_commands(output: Path, objdir: Path):
+    """(one compile command per ``csrc/*.cu``, the link command)."""
+    nvcc = nvcc_path()
+    objs, compiles = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = objdir / f"{src.stem}.o"
+        objs.append(str(obj))
+        compiles.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                         "-o", str(obj), str(src)])
+    return compiles, [nvcc, "-shared", "-o", str(output), *objs]
 
 
 def library_path() -> Path:
@@ -78,12 +90,20 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         part = Path(tmp) / out.name
-        proc = subprocess.run(nvcc_command(part), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed building the SpGEMM kernels:\n"
-                + proc.stdout + proc.stderr)
+        compiles, link = nvcc_commands(part, Path(tmp))
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [(cmd[-1], p.communicate()[0], p.returncode)
+                for cmd, p in zip(compiles, procs)]
+        failed = [f"{src}:\n{log}" for src, log, rc in logs if rc != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append("link:\n" + proc.stdout + proc.stderr)
+        if failed:
+            raise RuntimeError("nvcc failed building the SpGEMM kernels:\n"
+                               + "\n".join(failed))
         os.replace(part, out)
     return out
 
@@ -93,8 +113,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+        for name, (argtypes, suffixes) in _SIGNATURES.items():
+            for suffix in suffixes:
                 fn = getattr(lib, name + suffix)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int

@@ -3,13 +3,24 @@
 Counterpart of ``ntpoly_tpu/ops/spgemm_pallas.py``: C = alpha * A @ B
 with threshold truncation, at block granularity, on one shard, split
 into an integer *structure pass* (plain torch) and a *numeric pass*
-(one of two hand-written CUDA kernels, ``csrc/``):
+(hand-written CUDA kernels, ``csrc/``).  The entry point ``spgemm``
+runs one of two:
 
   * ``spgemm_general``: every candidate product goes to the output slot
     ``structure_plan`` assigned it (rank form: slot g holds the g-th
     smallest output col id);
   * ``spgemm_band``: for banded operands, offset form (slot t holds col
     ``occ0 + t``), addressed arithmetically from ``band_plan``.
+
+Two more compute the general kernel's rank form from the panel layout
+of B (``b_panel``); as in the reference, only the low-K profile
+(``profiling/lowk.py``) calls them:
+
+  * ``spgemm_stream``: one row at a time, the operand stream overlapped
+    with the products;
+  * ``spgemm_window``: a group of G rows at a time from one window of
+    KA + G - 1 panel rows (``_v3_pick``, ``_v3_window``), with the
+    precision tiers and a bfloat16 instance.
 
 Each kernel has a plain PyTorch version beside it with the same inputs
 and outputs (``*_plain``).  The wrappers take the plain version only
@@ -34,7 +45,8 @@ from ..config import EMPTY
 Tensor = torch.Tensor
 
 # kernel launches per wrapper (reset with reset_launches)
-launches = {"spgemm_general": 0, "spgemm_band": 0}
+launches = {"spgemm_general": 0, "spgemm_band": 0, "spgemm_stream": 0,
+            "spgemm_window": 0}
 
 
 def reset_launches() -> None:
@@ -173,6 +185,23 @@ def _v4_pick(ka: int, kb: int, k_out: int, r: int, nbk: int):
     return None, None
 
 
+def _v3_pick(ka: int, kb: int, k_out: int, r: int, nbk: int):
+    """(g_rows, window) for the window kernel, or (None, None) when the
+    shape is outside its regime: the reference's gates and its group
+    order (8 first, where the band kernel's ``_v4_pick`` tries 16
+    first), so that both pick the same (g, w)."""
+    if r < V3_MIN_ROWS or ka > V3_MAX_KA:
+        return None, None
+    if kb > k_out:
+        return None, None
+    for g in (8, 16, 4, 2):
+        w = ka + g - 1
+        if nbk < w or r < g:
+            continue
+        return g, w
+    return None, None
+
+
 def _v3_window(a_cols: Tensor, g_rows: int):
     """Per-group window starts and the max window width from col ids:
     wlo[g] = min valid col id of group g, width = max over groups of
@@ -192,6 +221,16 @@ def eligible(dtype, bs: int) -> bool:
     size that is a multiple of 8 up to 128."""
     return (dtype in (torch.float32, torch.float64) and bs % 8 == 0
             and 0 < bs <= 128)
+
+
+def b_panel(b_cols: Tensor, b_blocks: Tensor) -> Tensor:
+    """B rows concatenated along columns, [NBK, bs, KB*bs], with EMPTY
+    slots zeroed: block t of row k is panel[k, :, t*bs:(t+1)*bs] (the
+    reference's ``make_panel``)."""
+    NBK, KB, bs, _ = b_blocks.shape
+    masked = torch.where((b_cols != EMPTY)[..., None, None], b_blocks,
+                         b_blocks.new_zeros(()))
+    return masked.transpose(1, 2).reshape(NBK, bs, KB * bs)
 
 
 # ----------------------------------------------------------------------------
@@ -214,22 +253,33 @@ def _epilogue(acc: Tensor, alpha: float, threshold: float):
     return x, x.abs().sum(dim=(-1, -2))
 
 
-def _plain(a_cols, a_blocks, b_cols, b_blocks, slot_of, cut, k_out,
-           alpha, threshold):
-    """Output slot slot_of(s, t)[r] of row r receives
-    A[r, s] @ B[acols[r, s], t] unless the slot is >= cut; then the
-    prune epilogue.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
+def _panel_b(a_col: Tensor, b_row: Tensor, panel: Tensor, t: int):
+    """Panel block (row b_row[r], block t) per row r, zero where A's slot
+    is EMPTY.  -> ([R, bs, bs], valid [R])."""
+    bs = panel.shape[1]
+    valid = a_col != EMPTY
+    blk = panel[torch.where(valid, b_row, 0).long(), :, t * bs:(t + 1) * bs]
+    return blk * valid[:, None, None].to(blk.dtype), valid
+
+
+def _plain(a_cols, a_blocks, kb, b_of, slot_of, cut, k_out, alpha,
+           threshold, dtype=None):
+    """Output slot slot_of(s, t)[r] of row r receives A[r, s] @ b_of(s,
+    t)[0][r] where b_of(s, t)[1][r] holds, unless the slot is >= cut;
+    products and sums in ``dtype`` (default A's); then the prune
+    epilogue.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
     R, KA = a_cols.shape
-    KB = b_cols.shape[1]
     bs = a_blocks.shape[-1]
-    acc = a_blocks.new_zeros((R * (k_out + 1), bs, bs))
+    dtype = dtype or a_blocks.dtype
+    acc = a_blocks.new_zeros((R * (k_out + 1), bs, bs), dtype=dtype)
     rows = torch.arange(R, device=a_cols.device) * (k_out + 1)
     for s in range(KA):
-        for t in range(KB):
-            bblk, ok = _masked_b(a_cols[:, s], b_cols, b_blocks, t)
+        for t in range(kb):
+            bblk, ok = b_of(s, t)
             g = slot_of(s, t)
             g = torch.where(ok & (g < cut), g, k_out)
-            acc.index_add_(0, rows + g, torch.bmm(a_blocks[:, s], bblk))
+            acc.index_add_(0, rows + g, torch.bmm(a_blocks[:, s].to(dtype),
+                                                  bblk.to(dtype)))
     acc = acc.reshape(R, k_out + 1, bs, bs)[:, :k_out]
     return _epilogue(acc, alpha, threshold)
 
@@ -241,7 +291,8 @@ def spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks, plan, *,
     >= k_out), then the prune epilogue.  -> (blocks [R, k_out, bs, bs],
     norms [R, k_out])."""
     KB = b_cols.shape[1]
-    return _plain(a_cols, a_blocks, b_cols, b_blocks,
+    return _plain(a_cols, a_blocks, KB,
+                  lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
                   lambda s, t: plan[:, s * KB + t].long(), k_out, k_out,
                   alpha, threshold)
 
@@ -253,9 +304,86 @@ def spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0, *,
     receives A[r, s] @ B[acols[r, s], t - gg0[r, s]] for every valid A
     slot s with 0 <= t - gg0 < KB; slots >= span are zero.
     -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
-    return _plain(a_cols, a_blocks, b_cols, b_blocks,
+    return _plain(a_cols, a_blocks, b_cols.shape[1],
+                  lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
                   lambda s, t: gg0[:, s].long() + t, span, k_out,
                   alpha, threshold)
+
+
+def spgemm_stream_plain(a_cols, a_blocks, panel, plan, *, kb: int,
+                        k_out: int, alpha: float, threshold: float):
+    """Plain version of the stream kernel: the general kernel's contract
+    with B as a panel ([NBK, bs, KB*bs], ``b_panel``): output slot
+    plan[r, s*KB + t] receives A[r, s] @ panel[min(acols[r, s], NBK -
+    1)][:, t*bs:(t+1)*bs].  -> (blocks [R, k_out, bs, bs], norms
+    [R, k_out])."""
+    last = panel.shape[0] - 1
+    return _plain(a_cols, a_blocks, kb,
+                  lambda s, t: _panel_b(a_cols[:, s],
+                                        a_cols[:, s].clamp(max=last),
+                                        panel, t),
+                  lambda s, t: plan[:, s * kb + t].long(), k_out, k_out,
+                  alpha, threshold)
+
+
+# output dtype of the window kernel per operand dtype
+_WINDOW_OUT = {torch.float32: torch.float32, torch.float64: torch.float64,
+               torch.bfloat16: torch.float32}
+
+
+def _window_types(a_cols, a_blocks, panel, wlo, g_rows, w, precision):
+    """Check the window kernel's arguments -> its output dtype.  The
+    operands are float32 or float64 (output in their dtype) or, for the
+    'bf16' tier and only there, bfloat16 (output float32).  Rows come in
+    whole groups of g_rows, one window start each, and the window fits
+    the panel."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    dt = a_blocks.dtype
+    if panel.dtype != dt or dt not in _WINDOW_OUT:
+        raise TypeError(f"window kernel operands: {dt}, {panel.dtype}")
+    if (precision == "bf16") != (dt == torch.bfloat16):
+        raise TypeError("the 'bf16' tier takes bfloat16 operands, and "
+                        f"only it does; got {dt} at {precision!r}")
+    R = a_cols.shape[0]
+    if g_rows < 1 or R % g_rows:
+        raise ValueError(f"{R} rows are not whole groups of {g_rows}")
+    if tuple(wlo.shape) != (R // g_rows,):
+        raise ValueError(f"wlo shape {tuple(wlo.shape)} != {(R // g_rows,)}")
+    if not 1 <= w <= panel.shape[0]:
+        raise ValueError(f"window {w} outside 1..{panel.shape[0]}")
+    return _WINDOW_OUT[dt]
+
+
+def _window_rows(a_col: Tensor, wlo: Tensor, g_rows: int, w: int,
+                 nbk: int) -> Tensor:
+    """Panel row of each row's col id inside its group's window: lo +
+    clip(acol - lo, 0, w - 1) with lo = min(wlo[group], nbk - w), as
+    the reference addresses its window."""
+    lo = torch.repeat_interleave(wlo.long().clamp(max=nbk - w), g_rows)
+    lo = lo.clamp(min=0)
+    return lo + (a_col.long() - lo).clamp(0, w - 1)
+
+
+def spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
+                        k_out: int, g_rows: int, w: int,
+                        precision: str = "highest", alpha: float,
+                        threshold: float):
+    """Plain version of the window kernel: the stream kernel's contract
+    for groups of ``g_rows`` rows, each reading its B rows from its
+    window (``_window_rows``), products and sums in the output dtype
+    (:func:`_window_types`).  -> (blocks [R, k_out, bs, bs], norms
+    [R, k_out])."""
+    out_dtype = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w,
+                              precision)
+    nbk = panel.shape[0]
+    return _plain(a_cols, a_blocks, kb,
+                  lambda s, t: _panel_b(
+                      a_cols[:, s],
+                      _window_rows(a_cols[:, s], wlo, g_rows, w, nbk),
+                      panel, t),
+                  lambda s, t: plan[:, s * kb + t].long(), k_out, k_out,
+                  alpha, threshold, dtype=out_dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -285,11 +413,44 @@ def _check_operands(a_cols, a_blocks, b_cols, b_blocks, idx):
                                      idx)]
 
 
+def _check_panel(a_cols, a_blocks, panel, kb, index):
+    """Device, shape, layout and alignment checks before a launch of a
+    kernel that reads B as a panel; ``index`` names the int32 tensors
+    besides a_cols (the plan first).  -> contiguous tensors."""
+    dev = a_blocks.device
+    for name, x in {"a_cols": a_cols, "panel": panel, **index}.items():
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, A on {dev}")
+        if name != "panel" and x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    R, KA = a_cols.shape
+    bs = a_blocks.shape[-1]
+    if bs % 8 or not 0 < bs <= 128:
+        raise TypeError(f"kernels take bs a multiple of 8 up to 128, "
+                        f"got {bs}")
+    if (tuple(a_blocks.shape) != (R, KA, bs, bs) or panel.dim() != 3
+            or tuple(panel.shape[1:]) != (bs, kb * bs)):
+        raise ValueError(f"A {tuple(a_blocks.shape)} and panel "
+                         f"{tuple(panel.shape)} do not match [R, KA, bs, "
+                         f"bs] and [NBK, bs, KB*bs] at KB={kb}")
+    plan = next(iter(index.values()))
+    if tuple(plan.shape) != (R, KA * kb):
+        raise ValueError(f"plan shape {tuple(plan.shape)} != {(R, KA * kb)}")
+    out = [x.contiguous() for x in (a_cols, a_blocks, panel,
+                                    *index.values())]
+    if out[1].data_ptr() % 16 or out[2].data_ptr() % 16:
+        raise ValueError("A and the panel must start on 16 bytes")
+    return out
+
+
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
+           torch.bfloat16: "_bf16"}
+
+
 def _launch(entry, dtype, args, ints, alpha, threshold, what):
     from . import _cuda
     lib = _cuda.library()
-    fn = getattr(lib, entry + ("_f32" if dtype == torch.float32
-                               else "_f64"))
+    fn = getattr(lib, entry + _SUFFIX[dtype])
     stream = torch.cuda.current_stream().cuda_stream
     code = fn(*[x.data_ptr() for x in args], *ints, float(alpha),
               float(threshold), stream)
@@ -342,6 +503,60 @@ def spgemm_band(a_cols, a_blocks, b_cols, b_blocks, gg0, *, k_out: int,
     nrm = ab.new_empty((R, k_out))
     _launch("ntp_spgemm_band", ab.dtype, (ac, ab, bc, bb, g0, out, nrm),
             (R, KA, KB, k_out, span, bs), alpha, threshold, "spgemm_band")
+    return out, nrm
+
+
+def spgemm_stream(a_cols, a_blocks, panel, plan, *, kb: int, k_out: int,
+                  alpha: float, threshold: float):
+    """Stream kernel (``csrc/spgemm_stream.cu``) on CUDA tensors, its
+    plain version on CPU tensors."""
+    if a_blocks.device.type == "cpu":
+        return spgemm_stream_plain(a_cols, a_blocks, panel, plan, kb=kb,
+                                   k_out=k_out, alpha=alpha,
+                                   threshold=threshold)
+    if a_blocks.device.type != "cuda":
+        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    if panel.dtype != a_blocks.dtype or not eligible(a_blocks.dtype,
+                                                     a_blocks.shape[-1]):
+        raise TypeError(f"the stream kernel takes matching float32/float64 "
+                        f"operands; got {a_blocks.dtype}, {panel.dtype}")
+    ac, ab, bp, pl = _check_panel(a_cols, a_blocks, panel, kb,
+                                  {"plan": plan})
+    R, KA = ac.shape
+    bs = ab.shape[-1]
+    out = ab.new_empty((R, k_out, bs, bs))
+    nrm = ab.new_empty((R, k_out))
+    _launch("ntp_spgemm_stream", ab.dtype, (ac, ab, bp, pl, out, nrm),
+            (R, KA, kb, bp.shape[0], k_out, bs), alpha, threshold,
+            "spgemm_stream")
+    return out, nrm
+
+
+def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
+                  k_out: int, g_rows: int, w: int,
+                  precision: str = "highest", alpha: float,
+                  threshold: float):
+    """Window kernel (``csrc/spgemm_window.cu``) on CUDA tensors, its
+    plain version on CPU tensors.  R is a multiple of g_rows: callers
+    pad col ids with EMPTY, the plan with k_out and blocks with zeros.
+    'highest', 'high' and 'default' run exact products; 'bf16' takes
+    bfloat16 operands and writes float32."""
+    kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, precision=precision,
+              alpha=alpha, threshold=threshold)
+    if a_blocks.device.type == "cpu":
+        return spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, **kw)
+    if a_blocks.device.type != "cuda":
+        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    dt = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w, precision)
+    ac, ab, bp, pl, wl = _check_panel(a_cols, a_blocks, panel, kb,
+                                      {"plan": plan, "wlo": wlo})
+    R, KA = ac.shape
+    bs = ab.shape[-1]
+    out = torch.empty((R, k_out, bs, bs), dtype=dt, device=ab.device)
+    nrm = torch.empty((R, k_out), dtype=dt, device=ab.device)
+    _launch("ntp_spgemm_window", ab.dtype, (ac, ab, bp, pl, wl, out, nrm),
+            (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w), alpha,
+            threshold, "spgemm_window")
     return out, nrm
 
 

@@ -137,6 +137,12 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
     return cc[None], cb[None], stats
 
 
+def fill_bound(a: PSMatrix, b: PSMatrix) -> int:
+    """Exact structural capacity A @ B needs: the largest fill of any
+    row (one host read)."""
+    return int(sp.structural_fill(a.col_ids[0], b.col_ids[0]).amax())
+
+
 def _k_bucket(n: int, cap: int) -> int:
     """Round capacity up to a multiple of 4 to bound shape variety."""
     return min(-(-max(n, 1) // 4) * 4, cap)

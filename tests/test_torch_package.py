@@ -56,11 +56,16 @@ def test_no_stubs():
 
 def test_cuda_build_command_without_nvcc(tmp_path):
     from ntpoly_tpu_torch.ops import _cuda
-    cmd = _cuda.nvcc_command(tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    srcs = {Path(c).name for c in cmd if c.endswith(".cu")}
-    assert srcs == {"spgemm_band.cu", "spgemm_general.cu"}
+    compiles, link = _cuda.nvcc_commands(tmp_path / "lib.so", tmp_path)
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+    srcs = {Path(cmd[-1]).name for cmd in compiles}
+    assert srcs == {"spgemm_band.cu", "spgemm_general.cu",
+                    "spgemm_stream.cu", "spgemm_window.cu"}
+    assert "-shared" in link and str(tmp_path / "lib.so") in link
+    assert sorted(c for c in link if c.endswith(".o")) == sorted(
+        cmd[cmd.index("-o") + 1] for cmd in compiles)
     assert _cuda.library_path().parent == ROOT / "ntpoly_tpu_torch" / \
         "_build"
     assert _cuda._lib is None            # nothing built at import
@@ -69,7 +74,9 @@ def test_cuda_build_command_without_nvcc(tmp_path):
 def test_cuda_sources_name_the_kernels_they_replace():
     csrc = ROOT / "ntpoly_tpu_torch" / "csrc"
     for name, fn in (("spgemm_general.cu", "_kernel"),
-                     ("spgemm_band.cu", "_kernel_v4")):
+                     ("spgemm_band.cu", "_kernel_v4"),
+                     ("spgemm_stream.cu", "_kernel_v2"),
+                     ("spgemm_window.cu", "_kernel_v3")):
         head = (csrc / name).read_text().split("#include")[0]
         assert f"ntpoly_tpu/ops/spgemm_pallas.py:{fn}" in head
 
