@@ -15,7 +15,12 @@ Phases, one line each with its seconds:
    general kernels through the entry point, the stream and window
    kernels through their wrappers (the window kernel also with bf16
    operands, and on the scattered case, whose col ids leave their
-   group's window and are clamped); then the band and general kernels
+   group's window and are clamped), and the uniform kernel through its
+   wrapper (both addressings, f32 at 'highest' and 'high', bf16; first
+   groups at wlo = 0, last groups clamped to NBK - W, a padded last
+   group, holes, a col id outside its window, k_out > span; blocks and
+   column norms; 'high' nearer its bf16x3 plain version than the exact
+   float32 product; f64 refused); then the band and general kernels
    and their plain versions timed at the shapes the TRS4 path gives
    them.
 4. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
@@ -25,22 +30,39 @@ Phases, one line each with its seconds:
    the general, stream and window kernels against one another, the
    `matmul` arm against the band kernel's plain version, and the
    plain versions timed.
-5. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
+5. lowk_r5: the round-5 low-K profile (profiling/lowk_r5.py) on the
+   same operand, every arm timed; then every uniform arm against its
+   plain version on the same inputs (blocks, column norms and, for
+   'high', the distance from the exact float32 product),
+   `uniform_pos_highest_g8` against the diag form and
+   `uniform_pos_high_g8` (bf16x3 on the tensor cores) against the band
+   kernel's exact float32 on the interior rows, and the plain versions
+   timed.  The diag arms are the library yardstick.
+6. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
    kernel on the card, and through the plain versions on the CPU.
-6. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
+7. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
    the band kernel, with its certificates (idempotency, commutator,
    electron count).
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
-general kernels in the card's TRS4 solves of phases 5 and 6 (the
+general kernels in the card's TRS4 solves of phases 6 and 7 (the
 `kernels` line reports their sum), the stream and window kernels in the
-low-K profile of phase 4.  Any failed phase ends the run with a
-non-zero exit code.  The last line is the result:
+low-K profile of phase 4, the uniform kernel in the round-5 profile of
+phase 5.  Each kernel's `bound_ms` is the larger of its least bytes
+(each input read once, an operand passed as both A and B once, each
+output written once) over 3.35 TB/s and its operations over the peak
+of their type (FP32
+67 TFLOP/s, FP64 67 TFLOP/s on the tensor cores, bf16 989 TFLOP/s), at
+the inputs its `ms` was timed on.  No single PyTorch call computes a
+threshold-pruned block-ELL product, so `library_ms` is null.  Any
+failed phase ends the run with a non-zero exit code.  The last line is
+the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -58,7 +80,7 @@ from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import algebra as alg
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import lowk
+from ntpoly_tpu_torch.profiling import lowk, lowk_r5
 from ntpoly_tpu_torch.solvers import density
 from ntpoly_tpu_torch.solvers.parameters import SolverParameters
 from ntpoly_tpu_torch.systems import gapped_fn
@@ -76,8 +98,38 @@ KERNELS = {
     "spgemm_window": dict(
         source="ntpoly_tpu_torch/csrc/spgemm_window.cu",
         replaces="ntpoly_tpu/ops/spgemm_pallas.py:288"),
+    "spgemm_uniform": dict(
+        source="ntpoly_tpu_torch/csrc/spgemm_uniform.cu",
+        replaces="profile_lowk_r5.py:189, profile_lowk_r5.py:310, "
+                 "profile_lowk_r5.py:455, profile_lowk_r5.py:605"),
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "fp64_tensor": 67e12, "bf16_tensor": 989e12}
+# the uniform arm whose time stands for the kernel in the `kernels` line
+UNIFORM_ARM = "uniform_pos_high_g8"
+
+
+def timed(ms: float, plain_ms: float, flops: float, peak: str, tensors):
+    """A kernel's times with its bound: the larger of the bytes of its
+    inputs and outputs (``tensors``, each storage moved once, so that X
+    passed as both A and B of X @ X counts once) over the HBM rate and
+    its operations over the peak of their type."""
+    seen = {}
+    for x in tensors:
+        key = x.untyped_storage().data_ptr()
+        seen[key] = max(seen.get(key, 0), x.numel() * x.element_size())
+    nbytes = sum(seen.values())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_text(t: dict) -> str:
+    return (f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_ms'] / t['ms']:.0f}% reached)")
 
 
 def flagship_params(k_out: int, method: str) -> SolverParameters:
@@ -243,6 +295,8 @@ def phase_kernels(errs):
                         errs, (name, (ac, ab), (bc, bb), k_out, alpha, thr),
                         dtype, bs):
                     used[kern] += 1
+    for bs in (8, 32, 128):
+        used["spgemm_uniform"] += uniform_kernel_cases(errs, gen, bs)
     for k, n in used.items():
         if not n:
             raise AssertionError(f"no case launched {k}")
@@ -292,6 +346,100 @@ def panel_kernel_cases(errs, case, dtype, bs):
     return [r[0] for r in runs]
 
 
+def uniform_tol(precision, dtype, depth):
+    """max(the dtype's flat tolerance, depth * unit roundoff), relative to
+    max |C|; 'high' sums three terms a product, so thrice the depth."""
+    depth *= 3 if precision == "high" else 1
+    return max(TOL[dtype], depth * torch.finfo(dtype).eps / 2)
+
+
+def _norm_error(kn, pn, kb, pb, threshold):
+    """Max error of the kernel's column norms kn against the plain
+    version's pn, relative to max pn.  A column may differ by each of
+    its entries that one side flushed and the other kept within
+    rounding of the threshold (as in ``_errors``)."""
+    kb, pb = kb.double(), pb.double().to(kb.device)
+    edge = (((kb == 0) != (pb == 0))
+            & (torch.maximum(kb.abs(), pb.abs()) <= threshold * (1 + 1e-4)))
+    slack = edge.sum(-2) * (threshold * (1 + 1e-4))
+    pn = pn.double().to(kn.device)
+    diff = ((kn.double() - pn).abs() - slack.to(kn.device)).clamp(min=0)
+    return float(diff.max()) / max(float(pn.max()), 1e-300)
+
+
+def uniform_check(what, out, args, kw, tol):
+    """The uniform kernel's ``out`` (blocks, column norms) against its
+    plain version on ``args``: blocks and norms within ``tol`` of max |C|
+    and of the largest norm, occupancy (norms > 0) exactly; and at
+    'high', the blocks nearer that bf16x3 plain version than the exact
+    float32 product (the plain version at 'highest' on the same inputs),
+    which a kernel that ran 'high' as exact float32 would not be.  Raises
+    on failure.  -> the blocks' max abs error."""
+    thr = kw["threshold"]
+    pb, pn = sp.spgemm_uniform_plain(*args, **kw)
+    kb, kn = (x.to(pb.device) for x in out)
+    aerr, err = _errors(kb, pb, thr)
+    nerr = _norm_error(kn, pn, kb, pb, thr)
+    occupancy = torch.equal(kn > 0, pn > 0)
+    del pb, pn
+    exact = None
+    if kw["precision"] == "high":
+        eb = sp.spgemm_uniform_plain(*args, **{**kw, "precision": "highest"})
+        exact = _errors(kb, eb[0], thr)[1]
+        del eb
+    _check(what, err, tol, occupancy, nerr, exact)
+    return aerr
+
+
+def uniform_kernel_cases(errs, gen, bs):
+    """The uniform kernel on the card against its plain version on the
+    CPU (``uniform_check``): A a 136-row band with holes, an empty and a
+    ragged row and one row whose col ids leave its window; B raw blocks
+    of another band; in groups of 8 (the last group's window clamped to
+    NBK - W) and 16 (a padded last group); both addressings; f32 at
+    'highest' and 'high', bf16 operands; alpha != 1 and k_out > span;
+    threshold > 0.  float64 operands, which only the plain version
+    takes, are refused on the card.  -> the launches made."""
+    rows, ka = 136, 3
+    thr = 0.5 * math.sqrt(bs)
+    ac, ab = band_operand(gen, rows, ka, bs, torch.float64, holes=0.15)
+    ac[7] = torch.tensor([0, 50, rows - 1], dtype=torch.int32)
+    bb = band_operand(gen, rows, ka, bs, torch.float64)[1]
+    tiers = (("highest", torch.float32), ("high", torch.float32),
+             ("bf16", torch.bfloat16))
+    n = 0
+    for g in (8, 16):
+        pad = -rows % g
+        ac_p = torch.cat([ac, ac.new_full((pad, ka), EMPTY)])
+        ab_p = torch.cat([ab, ab.new_zeros((pad, ka, bs, bs))])
+        wlo = sp._v3_window(ac_p, g)[0]
+        for (prec, dt), addr, (k_out, alpha) in itertools.product(
+                tiers, ("col", "position"), ((5, 1.7), (7, 1.0))):
+            args = (ac_p, ab_p.to(dt), bb.to(dt), wlo)
+            kw = dict(kb=ka, k_out=k_out, g_rows=g, w=ka + g - 1, span=5,
+                      addressing=addr, precision=prec, alpha=alpha,
+                      threshold=thr)
+            before = sp.launches["spgemm_uniform"]
+            out = sp.spgemm_uniform(*(x.cuda() for x in args), **kw)
+            torch.cuda.synchronize()
+            if sp.launches["spgemm_uniform"] != before + 1:
+                raise AssertionError("spgemm_uniform did not launch once")
+            n += 1
+            aerr = uniform_check(
+                f"{str(dt)[6:]} bs={bs} g={g} [spgemm_uniform {prec} {addr} "
+                f"k_out={k_out}]", out, args, kw,
+                uniform_tol(prec, torch.float32, ka * bs))
+            errs["spgemm_uniform"] = max(errs["spgemm_uniform"], aerr)
+        try:
+            sp.spgemm_uniform(*(x.cuda() for x in (ac_p, ab_p, bb, wlo)),
+                              **{**kw, "precision": "highest"})
+        except TypeError:
+            pass
+        else:
+            raise AssertionError("spgemm_uniform took float64 on the card")
+    return n
+
+
 def phase_timing(errs, times):
     """Kernel and plain version on the card at the main path's shapes:
     the flagship X @ X (band) and the phase-4 X @ X (general)."""
@@ -305,6 +453,11 @@ def phase_timing(errs, times):
     shapes = [("spgemm_band", "R=8192 KA=KB=5 k_out=9 bs=128 f32",
                lambda: sp.spgemm_band(ac, ab, ac, ab, gg0, **kw),
                lambda: sp.spgemm_band_plain(ac, ab, ac, ab, gg0, **kw), 5)]
+    # the work each computes: every candidate product lands inside the
+    # band's full span; the general kernel drops the ones past k_out
+    work = {"spgemm_band": (
+        int((sp._candidate_ids(ac, ac) != EMPTY).sum()), "fp32",
+        (ac, ab, ac, ab, gg0))}
     # phase-4 X @ X: 256 rows, KA = KB = 10, k_out 10, bs 32, f64
     gc, gb = band_operand(gen, 256, 10, 32, torch.float64)
     gc, gb = gc.cuda(), gb.cuda() / 32
@@ -314,6 +467,8 @@ def phase_timing(errs, times):
         ("spgemm_general", "R=256 KA=KB=10 k_out=10 bs=32 f64",
          lambda: sp.spgemm_general(gc, gb, gc, gb, plan, **kw2),
          lambda: sp.spgemm_general_plain(gc, gb, gc, gb, plan, **kw2), 20))
+    work["spgemm_general"] = (int((plan < 10).sum()), "fp64_tensor",
+                              (gc, gb, gc, gb, plan))
     depth_of = {"spgemm_band": 5 * 128, "spgemm_general": 10 * 32}
     for name, shape, kern, plain, reps in shapes:
         (kb, kn), (pb, pn) = kern(), plain()
@@ -328,14 +483,18 @@ def phase_timing(errs, times):
                                  f"> {tol:.2e}")
         errs[name] = max(errs[name], aerr)
         ms, pms = lowk.cuda_time(kern, reps), lowk.cuda_time(plain, reps)
-        times[name] = (ms, pms)
+        products, peak, inputs = work[name]
+        bs = kb.shape[-1]
+        times[name] = timed(ms, pms, 2 * bs ** 3 * products, peak,
+                            (*inputs, kb, kn))
         print(f"  {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"max rel err {err:.2e} (tolerance {tol:.1e})")
+              f"{bound_text(times[name])}, max rel err {err:.2e} "
+              f"(tolerance {tol:.1e})")
 
 
 def lowk_plains(op):
-    """arm -> (its kernel, the kernel's plain version on the arm's own
-    inputs) for every kernel arm of the low-K profile."""
+    """arm -> (its kernel, the arm's inputs, the kernel's plain version
+    on them) for every kernel arm of the low-K profile."""
     ac, ab = op.cols, op.blocks
     ka = ac.shape[1]
     ac3, ab3, plan3 = op.padded()
@@ -343,39 +502,48 @@ def lowk_plains(op):
     ab3_bf16, panel_bf16 = ab3.to(torch.bfloat16), op.panel.to(torch.bfloat16)
     ab_bf16 = ab.to(torch.bfloat16).to(torch.float32)
 
+    def general():
+        args = (ac, ab, ac, ab, op.plan)
+        return ("spgemm_general", args,
+                lambda: sp.spgemm_general_plain(*args, **kw))
+
+    def stream():
+        args = (ac, ab, op.panel, op.plan)
+        return ("spgemm_stream", args,
+                lambda: sp.spgemm_stream_plain(*args, kb=ka, **kw))
+
     def window(blocks, panel, precision):
-        return lambda: sp.spgemm_window_plain(
-            ac3, blocks, panel, plan3, op.wlo, kb=ka, g_rows=op.g_rows,
-            w=op.w, precision=precision, **kw)
+        args = (ac3, blocks, panel, plan3, op.wlo)
+        return ("spgemm_window", args, lambda: sp.spgemm_window_plain(
+            *args, kb=ka, g_rows=op.g_rows, w=op.w, precision=precision,
+            **kw))
 
     def band(blocks):
-        return lambda: sp.spgemm_band_plain(ac, blocks, ac, blocks, op.gg0,
-                                            span=op.span, **kw)
+        args = (ac, blocks, ac, blocks, op.gg0)
+        return ("spgemm_band", args,
+                lambda: sp.spgemm_band_plain(*args, span=op.span, **kw))
 
     return {
-        "general": ("spgemm_general", lambda: sp.spgemm_general_plain(
-            ac, ab, ac, ab, op.plan, **kw)),
-        "stream": ("spgemm_stream", lambda: sp.spgemm_stream_plain(
-            ac, ab, op.panel, op.plan, kb=ka, **kw)),
-        "window_highest": ("spgemm_window", window(ab3, op.panel, "highest")),
-        "window_high": ("spgemm_window", window(ab3, op.panel, "high")),
-        "window_bf16": ("spgemm_window", window(ab3_bf16, panel_bf16,
-                                                "bf16")),
-        "band_highest": ("spgemm_band", band(ab)),
-        "band_high": ("spgemm_band", band(ab)),
-        "band_bf16": ("spgemm_band", band(ab_bf16)),
+        "general": general(),
+        "stream": stream(),
+        "window_highest": window(ab3, op.panel, "highest"),
+        "window_high": window(ab3, op.panel, "high"),
+        "window_bf16": window(ab3_bf16, panel_bf16, "bf16"),
+        "band_highest": band(ab),
+        "band_high": band(ab),
+        "band_bf16": band(ab_bf16),
     }
 
 
-def phase_lowk(errs, times):
-    """The low-K profile at full size on the card, with the launches of
-    each kernel counted over its run; then, on its operand, every
-    kernel arm against its plain version on the same inputs (also on
-    the card), the rank-form arms (general, stream, window 'highest'
-    and 'high') against one another, the `matmul` arm against the band
-    kernel's plain version slot by col id, and the plain versions
-    timed.  -> the profile's launch counts."""
-    op = lowk.operand("cuda")
+def phase_lowk(errs, times, op):
+    """The low-K profile at full size on the card (``op``, the chain
+    operand), with the launches of each kernel counted over its run;
+    then, on its operand, every kernel arm against its plain version on
+    the same inputs (also on the card), the rank-form arms (general,
+    stream, window 'highest' and 'high') against one another, the
+    `matmul` arm against the band kernel's plain version slot by col
+    id, and the plain versions timed.  -> the profile's launch
+    counts."""
     sp.reset_launches()
     res = lowk.profile("cuda", op=op)
     counts = dict(sp.launches)
@@ -394,8 +562,9 @@ def phase_lowk(errs, times):
     rank_form = ("general", "stream", "window_highest", "window_high")
     first = None
     plains = lowk_plains(op)
-    for arm, (kern, plain) in plains.items():
-        blk, nrm = (x[:rows] for x in arms[arm]())
+    for arm, (kern, inputs, plain) in plains.items():
+        out = arms[arm]()
+        blk, nrm = (x[:rows] for x in out)
         pb, pn = (x[:rows] for x in plain())
         torch.cuda.synchronize()
         aerr, err = _errors(blk, pb, op.threshold)
@@ -412,11 +581,16 @@ def phase_lowk(errs, times):
         errs[kern] = max(errs[kern], aerr)
         del blk, nrm, pb, pn
         pms = lowk.cuda_time(plain, 3)
+        t = timed(res["ms"][arm], pms, op.flops(),
+                  "bf16_tensor" if inputs[1].dtype == torch.bfloat16
+                  else "fp32", (*inputs, *out))
         if arm in ("stream", "window_highest"):
-            times[kern] = (res["ms"][arm], pms)
-        print(f"  {arm} [{kern}]: kernel {res['ms'][arm]:.3f} ms, plain "
-              f"{pms:.3f} ms, vs plain max rel err {err:.2e} (tolerance "
-              f"{tol:.1e}){same}{'' if ok else '  MISMATCH'}")
+            times[kern] = t
+        del out
+        print(f"  {arm} [{kern}]: kernel {t['ms']:.3f} ms, plain "
+              f"{pms:.3f} ms, {bound_text(t)}, vs plain max rel err "
+              f"{err:.2e} (tolerance {tol:.1e}){same}"
+              f"{'' if ok else '  MISMATCH'}")
         if not ok:
             raise AssertionError(f"{arm} [{kern}] disagrees with its plain "
                                  "version on the low-K operand")
@@ -428,7 +602,7 @@ def phase_lowk(errs, times):
     occ0 = sp.band_plan(op.cols, op.cols, op.k_out, span=op.span)[1]
     pc = occ0[:, None] + torch.arange(op.k_out, dtype=occ0.dtype,
                                       device=occ0.device)
-    pb = plains["band_high"][1]()[0]
+    pb = plains["band_high"][2]()[0]
     torch.cuda.synchronize()
     aerr, err = _errors(mb, bell.align(mc, pc, pb), op.threshold)
     err = max(err, _errors(bell.align(pc, mc, mb), pb, op.threshold)[1])
@@ -438,6 +612,101 @@ def phase_lowk(errs, times):
     if err > tol:
         raise AssertionError("the matmul arm disagrees with the band "
                              "kernel's plain version on the low-K operand")
+    return counts
+
+
+def _check(what, err, tol, occupancy, norm_err=None, exact_err=None):
+    """Print one comparison and raise unless the blocks' error (err) and,
+    where given, the norms' (norm_err) are within tol, occupancy is
+    exact and, where given, the blocks lie nearer their reference than
+    the exact float32 product (exact_err)."""
+    ok = (max(err, norm_err or 0.0) <= tol and occupancy
+          and (exact_err is None or err < exact_err))
+    print(f"  {what}: max rel err {err:.2e}"
+          + ("" if norm_err is None else f", norms {norm_err:.2e}")
+          + f" (tolerance {tol:.1e})"
+          + ("" if exact_err is None else
+             f", vs exact float32 {exact_err:.2e}")
+          + f", occupancy {'exact' if occupancy else 'DIFFERS'}"
+          + ("" if ok else "  MISMATCH"))
+    if not ok:
+        raise AssertionError(f"{what} disagree")
+
+
+def phase_lowk_r5(errs, times, op):
+    """The round-5 low-K profile at full size on the card, on the lowk
+    phase's operand, with the launches counted over its run; then every
+    uniform arm against its plain version on the same inputs (also on
+    the card), `uniform_pos_highest_g8` against `diag_highest`, and
+    `uniform_pos_high_g8` (bf16x3) against the band kernel at
+    'highest' (exact float32) on the interior rows, and the plain
+    versions timed.  -> the profile's launch counts."""
+    sp.reset_launches()
+    res = lowk_r5.profile("cuda", op=op)
+    counts = dict(sp.launches)
+    print(f"  shape {json.dumps(res['shape'])}, {res['uniform_products']} "
+          f"uniform block products, launches {counts}")
+    for name, ms in res["ms"].items():
+        print(f"  {name}: {ms:.3f} ms")
+    rows, ka = op.cols.shape
+    bs, span = op.h.bs, op.span
+    arms = lowk_r5.arms(op)
+    kept = {}
+    flops = 2 * bs ** 3 * lowk_r5.uniform_products(op)
+    for name, (args, kw) in lowk_r5.uniform_args(op).items():
+        out = arms[name]()
+        torch.cuda.synchronize()
+        pms = lowk.cuda_time(
+            lambda a=args, k=kw: sp.spgemm_uniform_plain(*a, **k), 3)
+        # 'high' is three bf16 products a block product on the tensor
+        # cores, 'highest' one float32 product on the FMA pipes
+        tier = kw["precision"]
+        t = timed(res["ms"][name], pms, flops * (3 if tier == "high" else 1),
+                  "fp32" if tier == "highest" else "bf16_tensor",
+                  (*args, *out))
+        aerr = uniform_check(
+            f"{name} [spgemm_uniform]: kernel {t['ms']:.3f} ms, plain "
+            f"{pms:.3f} ms, {bound_text(t)}; vs plain", out, args, kw,
+            uniform_tol(tier, torch.float32, ka * bs))
+        errs["spgemm_uniform"] = max(errs["spgemm_uniform"], aerr)
+        if name == UNIFORM_ARM:
+            times["spgemm_uniform"] = t
+        if name in ("uniform_pos_highest_g8", "uniform_pos_high_g8"):
+            kept[name] = out
+        del out
+    print("  library yardstick, the diag form in cuBLAS (TF32 off): "
+          + ", ".join(f"{p} {res['ms']['diag_' + p]:.3f} ms"
+                      for p in lowk_r5.TIERS))
+    # on the interior rows, slot t of every arm holds col r - 2 + t
+    inner = lowk_r5.interior(op, 8)
+    ub, un = (x[:rows][inner][:, :span] for x in
+              kept.pop("uniform_pos_highest_g8"))
+    db, dn = (x[inner] for x in arms["diag_highest"]())
+    torch.cuda.synchronize()
+    tol = uniform_tol("highest", torch.float32, 2 * ka * bs)
+    _check(f"uniform_pos_highest_g8 vs diag_highest on {int(inner.sum())} "
+           "interior rows", _errors(ub, db, op.threshold)[1], tol,
+           torch.equal(un.sum(-1) > 0, dn > 0))
+    del ub, un, db, dn
+    # the bf16x3 split against exact float32: each product within 3 *
+    # 2^-16 of |a||b| (the dropped lo x lo term and the rounding of the
+    # two lo parts), plus both sides' float32 sums; in absolute terms
+    # against the largest sum of |a||b|
+    hb, hn = (x[:rows][inner][:, :span] for x in
+              kept.pop("uniform_pos_high_g8"))
+    eb, en = (x[inner] for x in arms["band_highest"]())
+    abs_ab = op.blocks.abs()
+    mag = sp.spgemm_band_plain(op.cols, abs_ab, op.cols, abs_ab, op.gg0,
+                               k_out=op.k_out, span=span, alpha=1.0,
+                               threshold=0.0)[0][inner].abs().max()
+    torch.cuda.synchronize()
+    aerr = _errors(hb, eb, op.threshold)[0]
+    bound = float(mag) * (3 * 2.0 ** -16
+                          + 4 * ka * bs * torch.finfo(torch.float32).eps / 2)
+    scale = float(eb.abs().max())
+    _check(f"uniform_pos_high_g8 (bf16x3) vs band_highest (f32) on "
+           f"{int(inner.sum())} interior rows", aerr / scale, bound / scale,
+           torch.equal(hn.sum(-1) > 0, en > 0))
     return counts
 
 
@@ -544,22 +813,28 @@ def main() -> int:
     times = {}
     run("kernels", phase_kernels, errs)
     run("timing", phase_timing, errs, times)
-    # each kernel's own path counts its launches: the low-K profile for
-    # the stream and window kernels, the card solves for the others
-    low = run("lowk", phase_lowk, errs, times)
+    # each kernel's own path counts its launches: the low-K profiles for
+    # the stream, window and uniform kernels, the card solves for the
+    # others
+    op = lowk.operand("cuda")
+    low = run("lowk", phase_lowk, errs, times, op)
+    low_r5 = run("lowk_r5", phase_lowk_r5, errs, times, op)
+    del op
     parity = run("parity", phase_parity)
     flagship = run("flagship", phase_flagship)
     counts = {k: parity[k] + flagship[k] for k in ("spgemm_band",
                                                    "spgemm_general")}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
+    counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "
-          f"{parity}, flagship solve {flagship}, low-K profile {low})")
+          f"{parity}, flagship solve {flagship}, low-K profile {low}, "
+          f"round-5 low-K profile {low_r5})")
     for name, n in counts.items():
         if not n:
             raise AssertionError(f"{name} never launched on its path")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=counts[name], max_abs_err=errs[name],
-                    ms=times[name][0], plain_ms=times[name][1])
+                    **times[name], library_ms=None)
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)

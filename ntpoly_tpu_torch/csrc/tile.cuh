@@ -1,5 +1,7 @@
 // Shared pieces of the block SpGEMM kernels (spgemm_general.cu,
-// spgemm_band.cu, spgemm_stream.cu, spgemm_window.cu): a thread block
+// spgemm_band.cu, spgemm_stream.cu, spgemm_window.cu and the exact tier
+// of spgemm_uniform.cu; the tensor-core pieces of its other tiers are at
+// the end of the file): a thread block
 // accumulates products of bs x bs blocks (bs a multiple of 8, at most
 // 128) into one output block held in registers, staging k-chunks of
 // both operands through shared memory.  The epilogue is the reference's
@@ -135,6 +137,62 @@ __device__ __forceinline__ void store_zero(T* __restrict__ out,
   if (threadIdx.x == 0) *norm = T(0);
 }
 
+// The prune epilogue with per-column norms (spgemm_uniform.cu): out =
+// flush(alpha * acc), norms[c] = sum over rows of |out[row][c]|, c < bs.
+// red holds kThreads / 32 * TS values.
+template <typename T, int TS>
+__device__ __forceinline__ void store_pruned_cols(const Acc<T, TS>& acc,
+                                                  T* __restrict__ out,
+                                                  T* __restrict__ norms,
+                                                  int bs, T alpha,
+                                                  T threshold, T* red) {
+  constexpr int TM = Acc<T, TS>::TM;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  T part[TM];
+#pragma unroll
+  for (int j = 0; j < TM; ++j) part[j] = T(0);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int col = tx + 16 * j;
+      if (row < bs && col < bs) {
+        T x = acc.v[i][j] * alpha;
+        x = fabs(x) > threshold ? x : T(0);
+        out[row * bs + col] = x;
+        part[j] += fabs(x);
+      }
+    }
+  }
+  // a warp holds rows ty = 2 warp and 2 warp + 1: lanes l and l ^ 16
+  // share a column
+#pragma unroll
+  for (int j = 0; j < TM; ++j)
+    part[j] += __shfl_xor_sync(0xffffffffu, part[j], 16);
+  if (lane < 16) {
+#pragma unroll
+    for (int j = 0; j < TM; ++j) red[warp * TS + tx + 16 * j] = part[j];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < bs; c += kThreads) {
+    T sum = T(0);
+    for (int w = 0; w < kThreads / 32; ++w) sum += red[w * TS + c];
+    norms[c] = sum;
+  }
+  __syncthreads();  // red is reused by the next output
+}
+
+// Zero output block with zero column norms.
+template <typename T>
+__device__ __forceinline__ void store_zero_cols(T* __restrict__ out,
+                                                T* __restrict__ norms,
+                                                int bs) {
+  for (int i = threadIdx.x; i < bs * bs; i += kThreads) out[i] = T(0);
+  for (int c = threadIdx.x; c < bs; c += kThreads) norms[c] = T(0);
+}
+
 // Largest tile that a bs x bs block needs: 16, 32, 64 or 128.
 inline int tile_for(int bs) {
   return bs <= 16 ? 16 : bs <= 32 ? 32 : bs <= 64 ? 64 : 128;
@@ -240,8 +298,11 @@ constexpr int ring_bytes() {
 // use(o, p) says whether product slot p < n_slots feeds output o;
 // a(o, p) and b(o, p) are its A block (row stride bs) and B block (row
 // stride ldb); out(o) and norm(o) are where the pruned block and its
-// L1 norm go.  An output with no product is stored as zeros.
-template <typename Tin, typename T, int TS, class Src>
+// L1 norm go (with kColNorms, the bs norms of its columns: red then
+// holds kThreads / 32 * TS values).  An output with no product is
+// stored as zeros.
+template <typename Tin, typename T, int TS, class Src,
+          bool kColNorms = false>
 __device__ __forceinline__ void pipelined_outputs(const Src& src, int n_out,
                                                   int n_slots, int bs,
                                                   int ldb, T alpha,
@@ -295,8 +356,236 @@ __device__ __forceinline__ void pipelined_outputs(const Src& src, int n_out,
       stage ^= 1;
       ld = nx;
     }
-    store_pruned(acc, src.out(o), src.norm(o), bs, alpha, threshold, red);
+    if constexpr (kColNorms)
+      store_pruned_cols(acc, src.out(o), src.norm(o), bs, alpha, threshold,
+                        red);
+    else
+      store_pruned(acc, src.out(o), src.norm(o), bs, alpha, threshold, red);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the tensor cores (spgemm_uniform.cu): mma.sync m16n8k16, bf16 operands,
+// float sums
+// ---------------------------------------------------------------------------
+//
+// One 128 x 128 output tile per thread block (rows and columns at or
+// beyond bs are masked), its 8 warps as 2 (rows) x 4 (columns), each
+// warp a 64 x 32 sub-tile of 4 x 4 m16n8 tiles: 64 float accumulators a
+// thread.  Operands are staged k-chunk by k-chunk as bfloat16 in shared
+// memory (MmaStage) and read with ldmatrix: A row-major [m][k], B
+// row-major [k][n] through ldmatrix .trans.  Each row is padded by 16
+// bytes, which puts the 8 rows of an 8 x 8 ldmatrix in different banks.
+
+constexpr int kMmaTile = 128;
+
+template <int K>
+struct MmaStage {
+  static_assert(K % 16 == 0, "the mma k step is 16");
+  __nv_bfloat16 a[kMmaTile][K + 8];  // a[m][k] = A[m][k0 + k]
+  __nv_bfloat16 b[K][kMmaTile + 8];  // b[k][n] = B[k0 + k][n]
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a @ b for one m16n8k16 tile: a four registers of bf16 pairs (row
+// major), b two (column major), c four floats.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start the copies of k-chunk k0 (depth K) of two row-major bs x bs
+// bfloat16 blocks into st; copies outside the blocks are zero-filled.
+template <int K>
+__device__ __forceinline__ void stage_chunk_mma(
+    MmaStage<K>& st, const __nv_bfloat16* __restrict__ a,
+    const __nv_bfloat16* __restrict__ b, int bs, int k0) {
+  constexpr int V = 8;  // bf16 per 16-byte copy
+  constexpr int kRowA = K / V;
+  for (int i = threadIdx.x; i < kMmaTile * kRowA; i += kThreads) {
+    const int m = i / kRowA, k = (i % kRowA) * V;
+    const bool ok = m < bs && k0 + k < bs;
+    cp_async16(&st.a[m][k], ok ? a + m * bs + k0 + k : a, ok);
+  }
+  constexpr int kRowB = kMmaTile / V;
+  for (int i = threadIdx.x; i < K * kRowB; i += kThreads) {
+    const int k = i / kRowB, n = (i % kRowB) * V;
+    const bool ok = n < bs && k0 + k < bs;
+    cp_async16(&st.b[k][n], ok ? b + (k0 + k) * bs + n : b, ok);
+  }
+}
+
+// hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even: the
+// TPU's bf16x3 split (a_hi b_hi + a_lo b_hi + a_hi b_lo).
+__device__ __forceinline__ void split_bf16(float4 x, __nv_bfloat162 (&hi)[2],
+                                           __nv_bfloat162 (&lo)[2]) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  __nv_bfloat16 h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __float2bfloat16_rn(v[i]);
+    l[i] = __float2bfloat16_rn(v[i] - __bfloat162float(h[i]));
+  }
+  hi[0] = __halves2bfloat162(h[0], h[1]);
+  hi[1] = __halves2bfloat162(h[2], h[3]);
+  lo[0] = __halves2bfloat162(l[0], l[1]);
+  lo[1] = __halves2bfloat162(l[2], l[3]);
+}
+
+__device__ __forceinline__ void put4(__nv_bfloat16* p,
+                                     const __nv_bfloat162 (&v)[2]) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = v[0];
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = v[1];
+}
+
+// The split pass of one staged float k-chunk (depth kChunk, tile 128):
+// sp.a = [a_hi | a_lo | a_hi] and sp.b = [b_hi ; b_hi ; b_lo] along k,
+// so that one mma chain of depth 3 * kChunk sums the three terms.
+__device__ __forceinline__ void split_chunk(const Stage<float, kMmaTile>& st,
+                                            MmaStage<3 * kChunk>& sp) {
+  constexpr int kRowA = kChunk / 4;  // float4 per row of the A chunk
+  for (int i = threadIdx.x; i < kMmaTile * kRowA; i += kThreads) {
+    const int m = i / kRowA, k = (i % kRowA) * 4;
+    __nv_bfloat162 hi[2], lo[2];
+    split_bf16(*reinterpret_cast<const float4*>(&st.a[m][k]), hi, lo);
+    put4(&sp.a[m][k], hi);
+    put4(&sp.a[m][kChunk + k], lo);
+    put4(&sp.a[m][2 * kChunk + k], hi);
+  }
+  constexpr int kRowB = kMmaTile / 4;
+  for (int i = threadIdx.x; i < kChunk * kRowB; i += kThreads) {
+    const int k = i / kRowB, n = (i % kRowB) * 4;
+    __nv_bfloat162 hi[2], lo[2];
+    split_bf16(*reinterpret_cast<const float4*>(&st.b[k][n]), hi, lo);
+    put4(&sp.b[k][n], hi);
+    put4(&sp.b[kChunk + k][n], hi);
+    put4(&sp.b[2 * kChunk + k][n], lo);
+  }
+}
+
+struct MmaAcc {
+  float v[4][4][4];  // [m tile][n tile][fragment]
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[i][j][c] = 0.f;
+  }
+
+  // v += the staged chunk's product (depth K).
+  template <int K>
+  __device__ __forceinline__ void mac(const MmaStage<K>& st) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int m0 = (warp / 4) * 64, n0 = (warp % 4) * 32;
+#pragma unroll
+    for (int kk = 0; kk < K; kk += 16) {
+      unsigned a[4][4], b[4][2];
+      // lanes 0-15 address rows 0-15 at k, lanes 16-31 the same rows at
+      // k + 8: the four 8 x 8 matrices of an m16k16 A fragment
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], &st.a[m0 + 16 * i + lane % 16][kk + 8 * (lane / 16)]);
+      // rows k..k+15 of two n8 tiles: (k lo, n), (k hi, n), (k lo, n + 8),
+      // (k hi, n + 8), transposed into column-major fragments
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned r[4];
+        ldmatrix_x4_trans(
+            r, &st.b[kk + lane % 16][n0 + 16 * j + 8 * (lane / 16)]);
+        b[2 * j][0] = r[0];
+        b[2 * j][1] = r[1];
+        b[2 * j + 1][0] = r[2];
+        b[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(v[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+};
+
+// The prune epilogue of an MmaAcc with per-column norms: out =
+// flush(alpha * acc), norms[c] = sum over rows of |out[row][c]|, c < bs.
+// red holds 2 * kMmaTile floats.
+__device__ __forceinline__ void store_mma(const MmaAcc& acc,
+                                          float* __restrict__ out,
+                                          float* __restrict__ norms, int bs,
+                                          float alpha, float threshold,
+                                          float* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = (warp / 4) * 64, n0 = (warp % 4) * 32;
+  const int g = lane / 4, q = lane % 4;
+  float part[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) part[j][0] = part[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // fragment c0, c1: row g, columns 2q, 2q + 1; c2, c3: row g + 8
+        const int row = m0 + 16 * i + 8 * h + g;
+        const int col = n0 + 8 * j + 2 * q;
+        float x0 = acc.v[i][j][2 * h] * alpha;
+        float x1 = acc.v[i][j][2 * h + 1] * alpha;
+        x0 = fabsf(x0) > threshold ? x0 : 0.f;
+        x1 = fabsf(x1) > threshold ? x1 : 0.f;
+        if (row < bs && col < bs) {  // bs is even: col + 1 < bs too
+          *reinterpret_cast<float2*>(out + row * bs + col) =
+              make_float2(x0, x1);
+          part[j][0] += fabsf(x0);
+          part[j][1] += fabsf(x1);
+        }
+      }
+  // the 8 lanes of one q hold the same columns
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2)
+        part[j][e] += __shfl_xor_sync(0xffffffffu, part[j][e], off);
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[(warp / 4) * kMmaTile + n0 + 8 * j + 2 * lane] = part[j][0];
+      red[(warp / 4) * kMmaTile + n0 + 8 * j + 2 * lane + 1] = part[j][1];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < bs; c += kThreads)
+    norms[c] = red[c] + red[kMmaTile + c];
+  __syncthreads();  // red is reused by the next output
 }
 
 // Raise the dynamic shared-memory cap of `kernel` to `bytes` (needed

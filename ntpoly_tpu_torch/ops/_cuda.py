@@ -37,6 +37,8 @@ _SIGNATURES = {
     "ntp_spgemm_stream": ((_P,) * 6 + (_I,) * 6 + (_D, _D, _P), _REAL),
     "ntp_spgemm_window": ((_P,) * 7 + (_I,) * 8 + (_D, _D, _P),
                           _REAL + ("_bf16",)),
+    "ntp_spgemm_uniform": ((_P,) * 6 + (_I,) * 11 + (_D, _D, _P),
+                           ("_f32", "_bf16")),
 }
 
 _lib = None

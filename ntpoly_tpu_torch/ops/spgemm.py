@@ -22,6 +22,16 @@ of B (``b_panel``); as in the reference, only the low-K profile
     KA + G - 1 panel rows (``_v3_pick``, ``_v3_window``), with the
     precision tiers and a bfloat16 instance.
 
+One more computes the *uniform-band* product of the JAX package's
+round-5 experiments (``profile_lowk_r5.py``: kernels v6, v7, v9, v10);
+only the round-5 low-K profile (``profiling/lowk_r5.py``) calls it:
+
+  * ``spgemm_uniform``: static output offsets (A slot s lands at output
+    slot s + t for B slot t), B rows addressed by col id or by position
+    inside the group's window, per-column norms, and the TPU's three
+    tiers -- 'high' as its bfloat16 hi/lo split (``split_bf16x3``) on
+    the tensor cores.
+
 Each kernel has a plain PyTorch version beside it with the same inputs
 and outputs (``*_plain``).  The wrappers take the plain version only
 for tensors on the CPU; for a CUDA tensor they launch the kernel or
@@ -46,7 +56,7 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper (reset with reset_launches)
 launches = {"spgemm_general": 0, "spgemm_band": 0, "spgemm_stream": 0,
-            "spgemm_window": 0}
+            "spgemm_window": 0, "spgemm_uniform": 0}
 
 
 def reset_launches() -> None:
@@ -386,6 +396,120 @@ def spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
                   alpha, threshold, dtype=out_dtype)
 
 
+# operand dtype -> output dtype of the uniform kernel, per tier
+_UNIFORM_OUT = {
+    "highest": {torch.float32: torch.float32, torch.float64: torch.float64},
+    "high": {torch.float32: torch.float32},
+    "bf16": {torch.bfloat16: torch.float32},
+}
+ADDRESSINGS = ("col", "position")
+
+
+def split_bf16x3(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The reference's bfloat16 split of float32 x: hi = bf16(x), lo =
+    bf16(x - f32(hi)), both rounded to nearest even.  The 'high' tier
+    sums a_hi b_hi + a_lo b_hi + a_hi b_lo."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(x.dtype)).to(torch.bfloat16)
+
+
+def _uniform_types(a_cols, a_blocks, b_blocks, wlo, *, kb, g_rows, w, span,
+                   addressing, precision):
+    """Check the uniform kernel's arguments -> its output dtype.
+    'highest' takes float32 or float64 operands (output in their dtype),
+    'high' float32 and 'bf16' bfloat16 (output float32).  B is raw
+    blocks [NBK, KB, bs, bs]; rows come in whole groups of g_rows, one
+    window start each; the window fits B; and every static offset fits
+    the computed width, KA + KB - 1 <= span."""
+    if precision not in _UNIFORM_OUT:
+        raise ValueError(f"precision {precision!r} not in "
+                         f"{tuple(_UNIFORM_OUT)}")
+    if addressing not in ADDRESSINGS:
+        raise ValueError(f"addressing {addressing!r} not in {ADDRESSINGS}")
+    outs = _UNIFORM_OUT[precision]
+    dt = a_blocks.dtype
+    if b_blocks.dtype != dt or dt not in outs:
+        raise TypeError(f"the uniform kernel at {precision!r} takes "
+                        f"{'/'.join(str(d)[6:] for d in outs)} operands; "
+                        f"got {dt}, {b_blocks.dtype}")
+    R, KA = a_cols.shape
+    bs = a_blocks.shape[-1]
+    if (tuple(a_blocks.shape) != (R, KA, bs, bs) or b_blocks.dim() != 4
+            or tuple(b_blocks.shape[1:]) != (kb, bs, bs)):
+        raise ValueError(f"A {tuple(a_blocks.shape)} and B "
+                         f"{tuple(b_blocks.shape)} do not match [R, KA, bs, "
+                         f"bs] and [NBK, KB, bs, bs] at KB={kb}")
+    if g_rows < 1 or R % g_rows:
+        raise ValueError(f"{R} rows are not whole groups of {g_rows}")
+    if tuple(wlo.shape) != (R // g_rows,):
+        raise ValueError(f"wlo shape {tuple(wlo.shape)} != {(R // g_rows,)}")
+    if not 1 <= w <= b_blocks.shape[0]:
+        raise ValueError(f"window {w} outside 1..{b_blocks.shape[0]}")
+    if KA + kb - 1 > span:
+        raise ValueError(f"static offsets pass the computed width: KA + KB "
+                         f"- 1 = {KA + kb - 1} > span {span}")
+    return outs[dt]
+
+
+def _uniform_rows(a_cols: Tensor, wlo: Tensor, g_rows: int, w: int,
+                  nbk: int, addressing: str) -> Tensor:
+    """[R, KA] raw B row that slot s of row r reads, inside its group's
+    window from lo = max(min(wlo[group], nbk - w), 0): 'col' addresses
+    by col id, clamped into the window (``_window_rows``,
+    profile_lowk_r5.py:219-222); 'position' reads window row i + s for
+    row i of the group whatever its col id (:336-341, :514-518)."""
+    R, KA = a_cols.shape
+    if addressing == "col":
+        return torch.stack([_window_rows(a_cols[:, s], wlo, g_rows, w, nbk)
+                            for s in range(KA)], dim=1)
+    lo = torch.repeat_interleave(wlo.long().clamp(max=nbk - w), g_rows)
+    i = torch.arange(R, device=a_cols.device) % g_rows
+    return (lo.clamp(min=0) + i)[:, None] + torch.arange(
+        KA, device=a_cols.device)
+
+
+def _tier_bmm(a: Tensor, b: Tensor, precision: str) -> Tensor:
+    """Batched block products at one tier: 'highest' in the operands'
+    dtype; 'high' as the three bf16 terms and 'bf16' on bfloat16
+    operands, each product exact in float32, sums in float32."""
+    f = torch.float32
+    if precision == "high":
+        (ah, al), (bh, bl) = split_bf16x3(a), split_bf16x3(b)
+        return (torch.bmm(ah.to(f), bh.to(f)) + torch.bmm(al.to(f), bh.to(f))
+                + torch.bmm(ah.to(f), bl.to(f)))
+    if precision == "bf16":
+        return torch.bmm(a.to(f), b.to(f))
+    return torch.bmm(a, b)
+
+
+def spgemm_uniform_plain(a_cols, a_blocks, b_blocks, wlo, *, kb: int,
+                         k_out: int, g_rows: int, w: int, span: int,
+                         addressing: str, precision: str, alpha: float,
+                         threshold: float):
+    """Plain version of the uniform kernel: output slot t < span of row
+    r sums A[r, s] @ B[row(r, s), t - s] over the slots s with 0 <= t -
+    s < KB (``_uniform_rows``; no slot is skipped for its col id: EMPTY
+    slots hold zero blocks), then alpha, the threshold flush and the
+    L1 norm of every column; slots t >= span are zero.  -> (blocks
+    [R, k_out, bs, bs], col_norms [R, k_out, bs])."""
+    out_dtype = _uniform_types(a_cols, a_blocks, b_blocks, wlo, kb=kb,
+                               g_rows=g_rows, w=w, span=span,
+                               addressing=addressing, precision=precision)
+    R, KA = a_cols.shape
+    bs = a_blocks.shape[-1]
+    rows = _uniform_rows(a_cols, wlo, g_rows, w, b_blocks.shape[0],
+                         addressing)
+    acc = torch.zeros((R, k_out, bs, bs), dtype=out_dtype,
+                      device=a_blocks.device)
+    for t in range(min(span, k_out)):
+        for s in range(max(0, t - kb + 1), min(KA - 1, t) + 1):
+            acc[:, t] += _tier_bmm(a_blocks[:, s], b_blocks[rows[:, s], t - s],
+                                   precision)
+    x = acc * torch.as_tensor(alpha, dtype=out_dtype)
+    x = torch.where(x.abs() > threshold, x, x.new_zeros(()))
+    return x, x.abs().sum(dim=-2)
+
+
 # ----------------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------------
@@ -557,6 +681,54 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     _launch("ntp_spgemm_window", ab.dtype, (ac, ab, bp, pl, wl, out, nrm),
             (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w), alpha,
             threshold, "spgemm_window")
+    return out, nrm
+
+
+def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
+                   g_rows: int, w: int, span: int, addressing: str,
+                   precision: str, alpha: float, threshold: float):
+    """Uniform kernel (``csrc/spgemm_uniform.cu``) on CUDA tensors, its
+    plain version on CPU tensors.  R is a multiple of g_rows: callers
+    pad col ids with EMPTY and blocks with zeros.  'highest' runs exact
+    products (float32 on the card, float32 or float64 on the CPU);
+    'high' (float32 operands) and 'bf16' (bfloat16 operands, float32
+    output) run on the tensor cores."""
+    kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, span=span,
+              addressing=addressing, precision=precision, alpha=alpha,
+              threshold=threshold)
+    if a_blocks.device.type == "cpu":
+        return spgemm_uniform_plain(a_cols, a_blocks, b_blocks, wlo, **kw)
+    if a_blocks.device.type != "cuda":
+        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    dt = _uniform_types(a_cols, a_blocks, b_blocks, wlo, kb=kb,
+                        g_rows=g_rows, w=w, span=span,
+                        addressing=addressing, precision=precision)
+    if dt == torch.float64:
+        raise TypeError("the uniform kernel has no float64 instance; "
+                        "float64 runs on CPU tensors")
+    dev = a_blocks.device
+    for name, x in (("a_cols", a_cols), ("b_blocks", b_blocks),
+                    ("wlo", wlo)):
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, A on {dev}")
+    for name, x in (("a_cols", a_cols), ("wlo", wlo)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    R, KA = a_cols.shape
+    bs = a_blocks.shape[-1]
+    if bs % 8 or not 0 < bs <= 128:
+        raise TypeError(f"kernels take bs a multiple of 8 up to 128, "
+                        f"got {bs}")
+    ac, ab, bb, wl = (x.contiguous() for x in (a_cols, a_blocks, b_blocks,
+                                               wlo))
+    if ab.data_ptr() % 16 or bb.data_ptr() % 16:
+        raise ValueError("A and B must start on 16 bytes")
+    out = torch.empty((R, k_out, bs, bs), dtype=dt, device=dev)
+    nrm = torch.empty((R, k_out, bs), dtype=dt, device=dev)
+    _launch("ntp_spgemm_uniform", ab.dtype, (ac, ab, bb, wl, out, nrm),
+            (R, KA, kb, bb.shape[0], k_out, span, bs, g_rows, w,
+             int(addressing == "position"), int(precision == "high")),
+            alpha, threshold, "spgemm_uniform")
     return out, nrm
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``ntpoly_tpu/parallel/grid.py``.  This slice of the port
 runs on one device, so the grid is 1 x 1 x 1 and carries the
-``torch.device`` every matrix on it lives on.  The rows x cols x slices
-mesh of the reference (``torch.distributed`` process groups) is ROADMAP
-Queue A item 8.
+``torch.device`` every matrix on it lives on: the CUDA card unless the
+caller names another device (``device="cpu"``).  The rows x cols x
+slices mesh of the reference (``torch.distributed`` process groups) is
+ROADMAP Queue A item 8.
 """
 from __future__ import annotations
 
@@ -26,9 +27,8 @@ class ProcessGrid:
                 f"grid {self.rows}x{self.cols}x{self.slices}: only the "
                 "1x1x1 grid is ported; multi-device grids are ROADMAP "
                 "Queue A item 8")
-        if self.device is None:
-            raise ValueError("ProcessGrid needs an explicit device")
-        object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "device",
+                           torch.device(self.device or "cuda"))
 
     def __repr__(self):
         return f"ProcessGrid(1x1x1, device={self.device})"

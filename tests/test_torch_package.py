@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 MAX_COLS = 79
@@ -62,7 +63,8 @@ def test_cuda_build_command_without_nvcc(tmp_path):
         assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
     srcs = {Path(cmd[-1]).name for cmd in compiles}
     assert srcs == {"spgemm_band.cu", "spgemm_general.cu",
-                    "spgemm_stream.cu", "spgemm_window.cu"}
+                    "spgemm_stream.cu", "spgemm_window.cu",
+                    "spgemm_uniform.cu"}
     assert "-shared" in link and str(tmp_path / "lib.so") in link
     assert sorted(c for c in link if c.endswith(".o")) == sorted(
         cmd[cmd.index("-o") + 1] for cmd in compiles)
@@ -79,12 +81,17 @@ def test_cuda_sources_name_the_kernels_they_replace():
                      ("spgemm_window.cu", "_kernel_v3")):
         head = (csrc / name).read_text().split("#include")[0]
         assert f"ntpoly_tpu/ops/spgemm_pallas.py:{fn}" in head
+    head = (csrc / "spgemm_uniform.cu").read_text().split("#include")[0]
+    for fn in ("_kernel_v6", "_kernel_v7", "_kernel_v9", "_kernel_v10"):
+        assert f"profile_lowk_r5.py:{fn} " in head
 
 
 def test_grid_is_one_device_with_explicit_device():
+    """One device; the card unless the caller asks for another (no
+    CUDA tensor is made, so this holds without a card)."""
     from ntpoly_tpu_torch.parallel.grid import ProcessGrid
     with pytest.raises(ValueError, match="Queue A item 8"):
         ProcessGrid(2, 2, 1, device="cpu")
-    with pytest.raises(ValueError, match="explicit device"):
-        ProcessGrid()
+    assert ProcessGrid().device == torch.device("cuda")
+    assert ProcessGrid() == ProcessGrid(device="cuda")
     assert ProcessGrid(device="cpu") == ProcessGrid(1, 1, 1, device="cpu")

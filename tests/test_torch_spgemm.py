@@ -244,7 +244,8 @@ def test_cpu_tensors_take_plain_versions():
     P.reset_launches()
     both(a, a, 6)
     assert set(P.launches) == {"spgemm_general", "spgemm_band",
-                               "spgemm_stream", "spgemm_window"}
+                               "spgemm_stream", "spgemm_window",
+                               "spgemm_uniform"}
     assert not any(P.launches.values())
     ac = torch.zeros((2, 1), dtype=torch.int32, device="meta")
     ab = torch.zeros((2, 1, 8, 8), device="meta")
