@@ -12,7 +12,10 @@ Phases, one line each with its seconds:
    random block-ELL cases (holes, a ragged row, an empty row, alpha !=
    1, threshold > 0, an overflowing capacity, a band violation, a
    capacity-padded span), f32 and f64, bs 8, 32 and 128: the band and
-   general kernels through the entry point, the stream and window
+   general kernels through the entry point at every tier ('highest',
+   'high' and 'bf16' in f32, where 'high' must also lie nearer its
+   bf16x3 plain version than the exact product; f64 exact at 'highest'
+   and 'high'), the split pass bit for bit, the stream and window
    kernels through their wrappers (the window kernel also with bf16
    operands, and on the scattered case, whose col ids leave their
    group's window and are clamped), and the uniform kernel through its
@@ -20,36 +23,45 @@ Phases, one line each with its seconds:
    groups at wlo = 0, last groups clamped to NBK - W, a padded last
    group, holes, a col id outside its window, k_out > span; blocks and
    column norms; 'high' nearer its bf16x3 plain version than the exact
-   float32 product; f64 refused); then the band and general kernels
-   and their plain versions timed at the shapes the TRS4 path gives
-   them.
-4. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
+   float32 product; f64 refused).
+4. timing: kernels and plain versions on the card at the main path's
+   shapes: the band kernel at the flagship X @ X at 'highest' and
+   'high' (split pass included; 'high' must be at least twice as
+   fast), the split pass alone on that X and the band kernel's
+   tensor-core product alone on X split once (bit for bit the
+   wrapper's), the general kernel at the same product in rank form at
+   'high' and at the parity shape (f64).
+5. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
    full size, 2^19 rows of the chain at bs 128, every arm timed; then
    on its operand every kernel arm (general, stream, window and band
    at each tier) held against its plain version on the same inputs,
    the general, stream and window kernels against one another, the
-   `matmul` arm against the band kernel's plain version, and the
-   plain versions timed.
-5. lowk_r5: the round-5 low-K profile (profiling/lowk_r5.py) on the
+   `matmul` arm (band kernel at 'high') against the band kernel's plain
+   version, and the plain versions timed.
+6. lowk_r5: the round-5 low-K profile (profiling/lowk_r5.py) on the
    same operand, every arm timed; then every uniform arm against its
    plain version on the same inputs (blocks, column norms and, for
    'high', the distance from the exact float32 product),
-   `uniform_pos_highest_g8` against the diag form and
+   `uniform_pos_highest_g8` against the diag form,
    `uniform_pos_high_g8` (bf16x3 on the tensor cores) against the band
-   kernel's exact float32 on the interior rows, and the plain versions
-   timed.  The diag arms are the library yardstick.
-6. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
+   kernel's exact float32 and against the band kernel's own bf16x3 on
+   the interior rows (the band kernel's 'high' no slower), and the
+   plain versions timed.  The diag arms are the library yardstick.
+7. parity: TRS4 at dim 8192, bs 32, k_out 10, f64 through the general
    kernel on the card, and through the plain versions on the CPU.
-7. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
-   the band kernel, with its certificates (idempotency, commutator,
-   electron count).
+8. flagship: TRS4 of the 2^20-row gapped chain at bs 128 in f32 through
+   the band kernel at 'high' (the reference's setting: the split pass
+   and the tensor cores), with its certificates (idempotency,
+   commutator, electron count) computed at 'highest'; then the same
+   solve at 'highest' for the speed and accuracy trade.
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
-general kernels in the card's TRS4 solves of phases 6 and 7 (the
-`kernels` line reports their sum), the stream and window kernels in the
-low-K profile of phase 4, the uniform kernel in the round-5 profile of
-phase 5.  Each kernel's `bound_ms` is the larger of its least bytes
+general kernels in the card's TRS4 solves of phases 7 and 8 at the
+flagship's 'high' (the `kernels` line reports their sum), the split
+pass in that flagship solve, the stream and window kernels in the
+low-K profile of phase 5, the uniform kernel in the round-5 profile of
+phase 6.  Each kernel's `bound_ms` is the larger of its least bytes
 (each input read once, an operand passed as both A and B once, each
 output written once) over 3.35 TB/s and its operations over the peak
 of their type (FP32
@@ -65,11 +77,8 @@ from __future__ import annotations
 import itertools
 import json
 import math
-import os
-import re
 import subprocess
 import sys
-import tempfile
 import time
 
 import torch
@@ -77,14 +86,13 @@ import torch
 from ntpoly_tpu_torch.config import EMPTY
 from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
-from ntpoly_tpu_torch.parallel import algebra as alg
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import lowk, lowk_r5
+from ntpoly_tpu_torch.profiling import lowk, lowk_r5, trs4_tiers
+from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
+                                                   purity_invariants, solve)
 from ntpoly_tpu_torch.solvers import density
-from ntpoly_tpu_torch.solvers.parameters import SolverParameters
 from ntpoly_tpu_torch.systems import gapped_fn
-from ntpoly_tpu_torch.utils.logging import activate_logger, deactivate_logger
 
 KERNELS = {
     "spgemm_band": dict(source="ntpoly_tpu_torch/csrc/spgemm_band.cu",
@@ -102,6 +110,12 @@ KERNELS = {
         source="ntpoly_tpu_torch/csrc/spgemm_uniform.cu",
         replaces="profile_lowk_r5.py:189, profile_lowk_r5.py:310, "
                  "profile_lowk_r5.py:455, profile_lowk_r5.py:605"),
+    # the split inside _kernel_v4 (and _kernel), as one pass before the
+    # tensor-core product
+    "split_bf16": dict(
+        source="ntpoly_tpu_torch/csrc/spgemm_band.cu",
+        replaces="ntpoly_tpu/ops/spgemm_pallas.py:559, "
+                 "ntpoly_tpu/ops/spgemm_pallas.py:169"),
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense)
@@ -109,6 +123,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "fp64_tensor": 67e12, "bf16_tensor": 989e12}
 # the uniform arm whose time stands for the kernel in the `kernels` line
 UNIFORM_ARM = "uniform_pos_high_g8"
+# the band and uniform kernels' bf16x3 on the low-K interior rows, of
+# max |C|: their float32 sums differ by ~sqrt(depth) eps (4.1e-7 read on
+# the H100), while bf16x3 lies ~1.1e-5 from exact float32 there, so a
+# 'high' as far from bf16x3 as exact float32 fails
+BF16X3_PAIR_TOL = 3e-6
 
 
 def timed(ms: float, plain_ms: float, flops: float, peak: str, tensors):
@@ -130,40 +149,6 @@ def timed(ms: float, plain_ms: float, flops: float, peak: str, tensors):
 def bound_text(t: dict) -> str:
     return (f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
             f"{100 * t['bound_ms'] / t['ms']:.0f}% reached)")
-
-
-def flagship_params(k_out: int, method: str) -> SolverParameters:
-    """The flagship TRS4 settings: idempotency plateau, compensated
-    scalars, pinned capacity, deferred overflow warnings."""
-    return SolverParameters(converge_diff=1e-3, threshold=1e-7,
-                            iters_per_sync=1, compensated_scalars=True,
-                            convergence_metric="idempotency", k_out=k_out,
-                            matmul_method=method, on_overflow="warn")
-
-
-def purity_invariants(rho, h, nel: float, threshold: float) -> dict:
-    """Certificates of a converged density matrix K, with residuals
-    formed before their norms:
-      idempotency_rel = ||K^2 - K||_F / ||K||_F
-      trace_abs_err   = |tr K - nel|  (compensated trace)
-      commutator_rel  = ||KH - HK||_F / ||KH||_F"""
-    with alg.capacity_policy(k_out=max(rho.k, h.k), method="pallas_band",
-                             on_overflow="truncate"):
-        k2 = alg.matmul(rho, rho, threshold=threshold)
-        r = alg.increment(k2, rho, 1.0, -1.0)
-        del k2
-        idem = math.sqrt(max(float(alg.dot(r, r)), 0.0)
-                         / float(alg.dot(rho, rho)))
-        del r
-        tr = alg.host_pair(alg.trace_pair(rho))
-        kh = alg.matmul(rho, h, threshold=threshold)
-        hk = alg.matmul(h, rho, threshold=threshold)
-        c = alg.increment(kh, hk, 1.0, -1.0)
-        del hk
-        comm = math.sqrt(max(float(alg.dot(c, c)), 0.0)
-                         / float(alg.dot(kh, kh)))
-    return {"idempotency_rel": idem, "trace_abs_err": abs(tr - nel),
-            "commutator_rel": comm}
 
 
 # ----------------------------------------------------------------------------
@@ -255,42 +240,88 @@ def phase_build():
           f"({_cuda.library_path().name})")
 
 
+def split_case(errs):
+    """The split pass on the card against its plain version, bit for
+    bit, on float32 values over sixty decades, zeros and rounding ties.
+    -> the launches made."""
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(1 << 16, generator=gen)
+         * torch.logspace(-30, 30, 1 << 16))
+    ties = torch.tensor([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -0.0, 0.0])
+    x = torch.cat([x, ties])
+    for lo in (True, False):
+        hi, low = sp.split_bf16(x.cuda(), lo=lo)
+        torch.cuda.synchronize()
+        ph, pl = sp.split_bf16(x, lo=lo)
+        same = torch.equal(hi.cpu().view(torch.int16), ph.view(torch.int16))
+        if lo:
+            same = same and torch.equal(low.cpu().view(torch.int16),
+                                        pl.view(torch.int16))
+        print(f"  split_bf16 {'hi and lo' if lo else 'hi'} on {x.numel()} "
+              f"values: {'bit for bit' if same else 'MISMATCH'}")
+        if not same:
+            raise AssertionError("the split pass disagrees with its plain "
+                                 "version")
+    errs["split_bf16"] = 0.0
+    return 2
+
+
+def entry_tol(precision, dtype, depth):
+    """The blocks' tolerance of the band and general kernels against
+    their plain versions: the uniform kernel's at the kernels' tier."""
+    return uniform_tol(sp.kernel_tier(dtype, precision), dtype, depth)
+
+
 def phase_kernels(errs):
     """Every case through the entry point on the card (kernels) and on
-    the CPU (plain versions): col ids and fill counts exactly, blocks
-    to the dtype's tolerance relative to max |C|."""
+    the CPU (plain versions) at each tier: col ids and fill counts
+    exactly, blocks to the tier's tolerance relative to max |C| (the
+    depth KA * bs of the sums), and at 'high' nearer the bf16x3 plain
+    version than the exact product."""
     gen = torch.Generator().manual_seed(20261016)
     used = {k: 0 for k in KERNELS}
+    used["split_bf16"] += split_case(errs)
+    tiers = {torch.float32: ("highest", "high", "bf16"),
+             torch.float64: ("highest", "high")}
     for dtype in (torch.float32, torch.float64):
         for bs in (8, 32, 128):
             for name, (ac, ab), (bc, bb), k_out, alpha, thr in \
                     kernel_cases(gen, bs, dtype):
-                for mode in ("off", "auto", "force"):
+                for mode, prec in itertools.product(
+                        ("off", "auto", "force"), tiers[dtype]):
+                    kw = dict(k_out=k_out, alpha=alpha, threshold=thr,
+                              band_mode=mode)
                     before = dict(sp.launches)
                     got = sp.spgemm(ac.cuda(), ab.cuda(), bc.cuda(),
-                                    bb.cuda(), k_out=k_out, alpha=alpha,
-                                    threshold=thr, band_mode=mode)
+                                    bb.cuda(), precision=prec, **kw)
                     torch.cuda.synchronize()
-                    want = sp.spgemm(ac, ab, bc, bb, k_out=k_out,
-                                     alpha=alpha, threshold=thr,
-                                     band_mode=mode)
+                    want = sp.spgemm(ac, ab, bc, bb, precision=prec, **kw)
                     kern = [k for k in used if sp.launches[k] > before[k]]
                     for k in kern:
                         used[k] += 1
                     cc, cb, uc = (x.cpu() for x in got)
                     aerr, err = _errors(cb, want[1], thr)
+                    tol = entry_tol(prec, dtype, ac.shape[1] * bs)
+                    exact = ""
                     ok = (torch.equal(cc, want[0])
-                          and torch.equal(uc, want[2])
-                          and err <= TOL[dtype])
+                          and torch.equal(uc, want[2]) and err <= tol)
+                    if sp.kernel_tier(dtype, prec) == "high":
+                        ex = sp.spgemm(ac, ab, bc, bb, precision="highest",
+                                       **kw)[1]
+                        ex_err = _errors(cb, ex, thr)[1]
+                        ok = ok and err < ex_err
+                        exact = f", vs exact {ex_err:.2e}"
                     for k in kern:
-                        errs[k] = max(errs[k], aerr)
-                    print(f"  {str(dtype)[6:]} bs={bs} {name} {mode} "
-                          f"[{','.join(kern)}]: max rel err {err:.2e}"
+                        if k != "split_bf16":   # held bit for bit
+                            errs[k] = max(errs[k], aerr)
+                    print(f"  {str(dtype)[6:]} bs={bs} {name} {mode} {prec} "
+                          f"[{','.join(kern)}]: max rel err {err:.2e} "
+                          f"(tolerance {tol:.1e}){exact}"
                           f"{'' if ok else '  MISMATCH'}")
                     if not ok:
                         raise AssertionError(
-                            f"kernel case {name}/{mode} bs={bs} {dtype} "
-                            "disagrees with the plain version")
+                            f"kernel case {name}/{mode}/{prec} bs={bs} "
+                            f"{dtype} disagrees with the plain version")
                 for kern in panel_kernel_cases(
                         errs, (name, (ac, ab), (bc, bb), k_out, alpha, thr),
                         dtype, bs):
@@ -440,88 +471,171 @@ def uniform_kernel_cases(errs, gen, bs):
     return n
 
 
+def tier_work(precision: str, flops: float):
+    """(operations, the peak of their type) of a float32 product at a
+    tier: three bf16 products on the tensor cores at 'high', one at
+    'bf16', float32 on the FMA pipes at 'highest'."""
+    if precision == "high":
+        return 3 * flops, "bf16_tensor"
+    if precision == "bf16":
+        return flops, "bf16_tensor"
+    return flops, "fp32"
+
+
 def phase_timing(errs, times):
-    """Kernel and plain version on the card at the main path's shapes:
-    the flagship X @ X (band) and the phase-4 X @ X (general)."""
+    """Kernels and plain versions on the card at the main path's shapes:
+    the flagship X @ X through the band kernel at 'highest' and 'high'
+    (split pass included), the split pass alone on its X, the general
+    kernel on the same product in rank form at 'high', and the general
+    kernel at the phase-7 X @ X (f64); then the band kernel's
+    tensor-core product alone on X split once.  -> nothing; fills errs
+    and times (the `kernels` line takes that product, the split pass
+    and the general kernel at the parity shape)."""
     gen = torch.Generator().manual_seed(7)
     # flagship X @ X: 8192 rows, KA = KB = 5, full span 9, bs 128, f32
     ac, ab = band_operand(gen, 8192, 5, 128, torch.float32)
     ac, ab = ac.cuda(), ab.cuda() / 128
     gg0, _, ok = sp.band_plan(ac, ac, 9, span=9)
     assert bool(ok)
-    kw = dict(k_out=9, span=9, alpha=1.0, threshold=1e-7)
-    shapes = [("spgemm_band", "R=8192 KA=KB=5 k_out=9 bs=128 f32",
-               lambda: sp.spgemm_band(ac, ab, ac, ab, gg0, **kw),
-               lambda: sp.spgemm_band_plain(ac, ab, ac, ab, gg0, **kw), 5)]
-    # the work each computes: every candidate product lands inside the
-    # band's full span; the general kernel drops the ones past k_out
-    work = {"spgemm_band": (
-        int((sp._candidate_ids(ac, ac) != EMPTY).sum()), "fp32",
-        (ac, ab, ac, ab, gg0))}
-    # phase-4 X @ X: 256 rows, KA = KB = 10, k_out 10, bs 32, f64
+    flops = 2 * 128 ** 3 * int((sp._candidate_ids(ac, ac) != EMPTY).sum())
+    plan9, _, _ = sp.structure_plan(ac, ac, 9)
+    runs = []
+    for prec in ("highest", "high"):
+        kw = dict(k_out=9, span=9, alpha=1.0, threshold=1e-7,
+                  precision=prec)
+        runs.append((
+            "spgemm_band", prec, "R=8192 KA=KB=5 k_out=9 bs=128 f32",
+            lambda kw=kw: sp.spgemm_band(ac, ab, ac, ab, gg0, **kw),
+            lambda kw=kw: sp.spgemm_band_plain(ac, ab, ac, ab, gg0, **kw),
+            5, 5 * 128, *tier_work(prec, flops), (ac, ab, gg0)))
+    kw = dict(k_out=9, alpha=1.0, threshold=1e-7, precision="high")
+    runs.append((
+        "spgemm_general", "high", "R=8192 KA=KB=5 k_out=9 bs=128 f32 rank "
+        "form", lambda: sp.spgemm_general(ac, ab, ac, ab, plan9, **kw),
+        lambda: sp.spgemm_general_plain(ac, ab, ac, ab, plan9, **kw), 5,
+        5 * 128, *tier_work("high", flops), (ac, ab, plan9)))
+    # phase-7 X @ X: 256 rows, KA = KB = 10, k_out 10, bs 32, f64
     gc, gb = band_operand(gen, 256, 10, 32, torch.float64)
     gc, gb = gc.cuda(), gb.cuda() / 32
     plan, _, _ = sp.structure_plan(gc, gc, 10)
     kw2 = dict(k_out=10, alpha=1.0, threshold=1e-7)
-    shapes.append(
-        ("spgemm_general", "R=256 KA=KB=10 k_out=10 bs=32 f64",
-         lambda: sp.spgemm_general(gc, gb, gc, gb, plan, **kw2),
-         lambda: sp.spgemm_general_plain(gc, gb, gc, gb, plan, **kw2), 20))
-    work["spgemm_general"] = (int((plan < 10).sum()), "fp64_tensor",
-                              (gc, gb, gc, gb, plan))
-    depth_of = {"spgemm_band": 5 * 128, "spgemm_general": 10 * 32}
-    for name, shape, kern, plain, reps in shapes:
+    runs.append((
+        "spgemm_general", "highest", "R=256 KA=KB=10 k_out=10 bs=32 f64",
+        lambda: sp.spgemm_general(gc, gb, gc, gb, plan, **kw2),
+        lambda: sp.spgemm_general_plain(gc, gb, gc, gb, plan, **kw2), 20,
+        10 * 32, 2 * 32 ** 3 * int((plan < 10).sum()), "fp64_tensor",
+        (gc, gb, plan)))
+    ms_of = {}
+    for name, prec, shape, kern, plain, reps, depth, ops, peak, inputs \
+            in runs:
         (kb, kn), (pb, pn) = kern(), plain()
         torch.cuda.synchronize()
         aerr, err = _errors(kb, pb, 1e-7)
-        # worst-case bound of a sum of `depth` products in the working
-        # dtype (depth * unit roundoff), relative to max |C|
-        depth = depth_of[name]
-        tol = max(TOL[kb.dtype], depth * torch.finfo(kb.dtype).eps / 2)
-        if err > tol or not torch.equal(kn > 0, pn > 0):
-            raise AssertionError(f"{name} at {shape}: error {err:.2e} "
-                                 f"> {tol:.2e}")
+        tol = entry_tol(prec, kb.dtype, depth)
+        ok = err <= tol and torch.equal(kn > 0, pn > 0)
+        exact = ""
+        if prec == "high":
+            ex = (sp.spgemm_band_plain if name == "spgemm_band"
+                  else sp.spgemm_general_plain)
+            ex_args = (ac, ab, ac, ab, gg0 if name == "spgemm_band"
+                       else plan9)
+            ex_kw = dict(k_out=9, alpha=1.0, threshold=1e-7)
+            if name == "spgemm_band":
+                ex_kw["span"] = 9
+            ex_err = _errors(kb, ex(*ex_args, **ex_kw)[0], 1e-7)[1]
+            ok = ok and err < ex_err
+            exact = f", vs exact {ex_err:.2e}"
+        del pb, pn
+        if not ok:
+            raise AssertionError(f"{name} {prec} at {shape}: error "
+                                 f"{err:.2e} > {tol:.2e}{exact}")
         errs[name] = max(errs[name], aerr)
         ms, pms = lowk.cuda_time(kern, reps), lowk.cuda_time(plain, reps)
-        products, peak, inputs = work[name]
-        bs = kb.shape[-1]
-        times[name] = timed(ms, pms, 2 * bs ** 3 * products, peak,
-                            (*inputs, kb, kn))
-        print(f"  {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"{bound_text(times[name])}, max rel err {err:.2e} "
-              f"(tolerance {tol:.1e})")
+        ms_of[name, prec, shape] = ms, pms
+        t = timed(ms, pms, ops, peak, (*inputs, kb, kn))
+        if peak == "fp64_tensor":
+            times[name] = t
+        print(f"  {name} {prec} {shape}: kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, {bound_text(t)}, max rel err {err:.2e} "
+              f"(tolerance {tol:.1e}){exact}")
+        del kb, kn
+    # the split pass alone on the flagship X: what 'high' adds
+    ms = lowk.cuda_time(lambda: sp.split_bf16(ab), 10)
+    pms = lowk.cuda_time(lambda: sp.split_bf16x3(ab), 10)
+    hi, lo = sp.split_bf16(ab)
+    times["split_bf16"] = timed(ms, pms, 0.0, "fp32", (ab, hi, lo))
+    del hi, lo
+    print(f"  split_bf16 X {list(ab.shape)} f32: kernel {ms:.3f} ms, "
+          f"plain {pms:.3f} ms, {bound_text(times['split_bf16'])}")
+    # the band kernel's tensor-core product alone, on X split once: its
+    # entry in the `kernels` line, as the split pass has its own (its
+    # plain_ms is the plain version of the whole 'high' multiply)
+    flag = "R=8192 KA=KB=5 k_out=9 bs=128 f32"
+    planes = sp.split_bf16(ab)
+
+    def product():
+        return sp._run_kernel("spgemm_band", ac, ab, ac, ab, gg0,
+                              tuple(ac.shape), (9, 9, 128), "high", 1.0,
+                              1e-7, planes=(planes, planes))
+
+    kb, kn = product()
+    wb, wn = runs[1][3]()
+    same = torch.equal(kb, wb) and torch.equal(kn, wn)
+    del wb, wn
+    if not same:
+        raise AssertionError("the band kernel's product on X split once "
+                             "differs from its 'high' wrapper")
+    ms = lowk.cuda_time(product, 5)
+    times["spgemm_band"] = timed(ms, ms_of["spgemm_band", "high", flag][1],
+                                 *tier_work("high", flops),
+                                 (ac, *planes, gg0, kb, kn))
+    del kb, kn, planes
+    print(f"  spgemm_band high {flag}, the product alone (X split once): "
+          f"kernel {ms:.3f} ms, {bound_text(times['spgemm_band'])}, bit "
+          f"for bit the wrapper's")
+    fast = ms_of["spgemm_band", "highest", flag][0] / ms_of[
+        "spgemm_band", "high", flag][0]
+    print(f"  band kernel at the flagship X @ X: 'high' (split pass "
+          f"included) {fast:.2f}x faster than 'highest'")
+    if fast < 2:
+        raise AssertionError("the band kernel's 'high' is not twice as "
+                             "fast as its 'highest'")
 
 
 def lowk_plains(op):
-    """arm -> (its kernel, the arm's inputs, the kernel's plain version
-    on them) for every kernel arm of the low-K profile."""
+    """arm -> (its kernel, the arm's inputs, the tier its products run
+    at, the kernel's plain version on them) for every kernel arm of the
+    low-K profile.  The window kernel runs 'high' exactly; its 'bf16'
+    reads bfloat16 operands."""
     ac, ab = op.cols, op.blocks
     ka = ac.shape[1]
     ac3, ab3, plan3 = op.padded()
     kw = dict(k_out=op.k_out, alpha=1.0, threshold=op.threshold)
     ab3_bf16, panel_bf16 = ab3.to(torch.bfloat16), op.panel.to(torch.bfloat16)
-    ab_bf16 = ab.to(torch.bfloat16).to(torch.float32)
 
     def general():
         args = (ac, ab, ac, ab, op.plan)
-        return ("spgemm_general", args,
+        return ("spgemm_general", args, "highest",
                 lambda: sp.spgemm_general_plain(*args, **kw))
 
     def stream():
         args = (ac, ab, op.panel, op.plan)
-        return ("spgemm_stream", args,
+        return ("spgemm_stream", args, "highest",
                 lambda: sp.spgemm_stream_plain(*args, kb=ka, **kw))
 
     def window(blocks, panel, precision):
         args = (ac3, blocks, panel, plan3, op.wlo)
-        return ("spgemm_window", args, lambda: sp.spgemm_window_plain(
-            *args, kb=ka, g_rows=op.g_rows, w=op.w, precision=precision,
-            **kw))
+        return ("spgemm_window", args,
+                "bf16" if precision == "bf16" else "highest",
+                lambda: sp.spgemm_window_plain(
+                    *args, kb=ka, g_rows=op.g_rows, w=op.w,
+                    precision=precision, **kw))
 
-    def band(blocks):
-        args = (ac, blocks, ac, blocks, op.gg0)
-        return ("spgemm_band", args,
-                lambda: sp.spgemm_band_plain(*args, span=op.span, **kw))
+    def band(precision):
+        args = (ac, ab, ac, ab, op.gg0)
+        return ("spgemm_band", args, precision,
+                lambda: sp.spgemm_band_plain(*args, span=op.span,
+                                             precision=precision, **kw))
 
     return {
         "general": general(),
@@ -529,9 +643,9 @@ def lowk_plains(op):
         "window_highest": window(ab3, op.panel, "highest"),
         "window_high": window(ab3, op.panel, "high"),
         "window_bf16": window(ab3_bf16, panel_bf16, "bf16"),
-        "band_highest": band(ab),
-        "band_high": band(ab),
-        "band_bf16": band(ab_bf16),
+        "band_highest": band("highest"),
+        "band_high": band("high"),
+        "band_bf16": band("bf16"),
     }
 
 
@@ -554,15 +668,15 @@ def phase_lowk(errs, times, op):
         print(f"  {name}: {ms:.3f} ms")
     rows, ka = op.cols.shape
     arms = lowk.arms(op)
-    # the bound of a sum of depth = KA * bs products in float32, as at
-    # the timed shapes of the timing phase (the 'bf16' arms accumulate
+    # the bound of a sum of depth = KA * bs products in float32 at each
+    # arm's tier, as in the timing phase (the 'bf16' arms accumulate
     # their bfloat16 inputs in float32)
     depth = ka * op.h.bs
-    tol = max(TOL[torch.float32], depth * torch.finfo(torch.float32).eps / 2)
     rank_form = ("general", "stream", "window_highest", "window_high")
     first = None
     plains = lowk_plains(op)
-    for arm, (kern, inputs, plain) in plains.items():
+    for arm, (kern, inputs, tier, plain) in plains.items():
+        tol = uniform_tol(tier, torch.float32, depth)
         out = arms[arm]()
         blk, nrm = (x[:rows] for x in out)
         pb, pn = (x[:rows] for x in plain())
@@ -570,6 +684,12 @@ def phase_lowk(errs, times, op):
         aerr, err = _errors(blk, pb, op.threshold)
         ok = err <= tol and torch.equal(nrm > 0, pn > 0)
         same = ""
+        if tier == "high":
+            eb = plains["band_highest"][3]()[0][:rows]
+            ex_err = _errors(blk, eb, op.threshold)[1]
+            del eb
+            ok = ok and err < ex_err
+            same = f", vs exact {ex_err:.2e}"
         if arm in rank_form and first is None:
             first = (arm, blk, nrm)
         elif arm in rank_form:
@@ -581,9 +701,8 @@ def phase_lowk(errs, times, op):
         errs[kern] = max(errs[kern], aerr)
         del blk, nrm, pb, pn
         pms = lowk.cuda_time(plain, 3)
-        t = timed(res["ms"][arm], pms, op.flops(),
-                  "bf16_tensor" if inputs[1].dtype == torch.bfloat16
-                  else "fp32", (*inputs, *out))
+        t = timed(res["ms"][arm], pms, *tier_work(tier, op.flops()),
+                  (*inputs, *out))
         if arm in ("stream", "window_highest"):
             times[kern] = t
         del out
@@ -602,13 +721,14 @@ def phase_lowk(errs, times, op):
     occ0 = sp.band_plan(op.cols, op.cols, op.k_out, span=op.span)[1]
     pc = occ0[:, None] + torch.arange(op.k_out, dtype=occ0.dtype,
                                       device=occ0.device)
-    pb = plains["band_high"][2]()[0]
+    pb = plains["band_high"][3]()[0]
     torch.cuda.synchronize()
     aerr, err = _errors(mb, bell.align(mc, pc, pb), op.threshold)
     err = max(err, _errors(bell.align(pc, mc, mb), pb, op.threshold)[1])
     errs["spgemm_band"] = max(errs["spgemm_band"], aerr)
-    print(f"  matmul [spgemm_band]: vs band plain max rel err {err:.2e} "
-          f"(tolerance {tol:.1e})")
+    tol = uniform_tol("high", torch.float32, depth)
+    print(f"  matmul [spgemm_band]: vs band plain at 'high' max rel err "
+          f"{err:.2e} (tolerance {tol:.1e})")
     if err > tol:
         raise AssertionError("the matmul arm disagrees with the band "
                              "kernel's plain version on the low-K operand")
@@ -707,29 +827,25 @@ def phase_lowk_r5(errs, times, op):
     _check(f"uniform_pos_high_g8 (bf16x3) vs band_highest (f32) on "
            f"{int(inner.sum())} interior rows", aerr / scale, bound / scale,
            torch.equal(hn.sum(-1) > 0, en > 0))
+    del en
+    # two bf16x3 implementations: the band kernel's (wgmma) against the
+    # uniform kernel's (mma.sync), within BF16X3_PAIR_TOL and nearer each
+    # other than the band kernel's 'high' is to exact float32
+    bb, bn = (x[inner][:, :span] for x in arms["band_high"]())
+    torch.cuda.synchronize()
+    ex_err = _errors(bb, eb, op.threshold)[1]
+    del eb
+    _check(f"band_high (bf16x3) vs uniform_pos_high_g8 (bf16x3) on "
+           f"{int(inner.sum())} interior rows",
+           _errors(bb, hb, op.threshold)[1], BF16X3_PAIR_TOL,
+           torch.equal(bn > 0, hn.sum(-1) > 0), exact_err=ex_err)
+    band_ms, uni_ms = res["ms"]["band_high"], res["ms"][UNIFORM_ARM]
+    print(f"  low-K X @ X at 'high': band kernel {band_ms:.3f} ms (split "
+          f"pass included), {UNIFORM_ARM} {uni_ms:.3f} ms")
+    if band_ms > uni_ms:
+        raise AssertionError(f"the band kernel's 'high' is slower than "
+                             f"{UNIFORM_ARM} at the low-K X @ X")
     return counts
-
-
-def solve(h, isq, nel, params):
-    """density.trs4 -> (rho, energy, mu, iterations, launches).  The
-    iteration count is read from the solver's log, as the JAX package's
-    bench.py reads it; the kernel launch counts are reset just before
-    the solve and read just after it."""
-    params = params.copy()
-    params.be_verbose = True
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trs4.yaml")
-        activate_logger(path)
-        try:
-            sp.reset_launches()
-            rho, energy, mu = density.trs4(h, isq, nel, params)
-            counts = dict(sp.launches)
-        finally:
-            deactivate_logger()
-        with open(path) as f:
-            log = f.read()
-    n = int(re.search(r"^ *Total Iterations: (\d+)$", log, re.M).group(1))
-    return rho, energy, mu, n, counts
 
 
 def phase_parity():
@@ -762,41 +878,51 @@ def phase_parity():
 
 
 def phase_flagship():
-    """The flagship solve on the card, timed, then its certificates.
-    -> the solve's launch counts."""
-    dim, bs = 1 << 20, 128
-    nel = dim / 2
-    grid = ProcessGrid(device="cuda")
-    h = PM.banded(dim, 16, gapped_fn, bs=bs, grid=grid,
-                  dtype=torch.float32)
-    isq = PM.identity(dim, bs=bs, grid=grid, dtype=torch.float32)
-    params = flagship_params(5, "pallas_band")
-    warm = params.copy()
-    warm.max_iterations = 2
-    density.trs4(h, isq, nel, warm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rho, energy, mu, n, counts = solve(h, isq, nel, params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {n} iterations, {wall:.3f} s wall, {wall / n:.4f} s per "
-          f"iteration, energy {energy!r}, mu {mu!r}, rho_nnz {rho.nnz}, "
-          f"peak memory {peak / 2**30:.2f} GiB, launches {counts}")
-    inv = purity_invariants(rho, h, nel, params.threshold)
-    torch.cuda.synchronize()
-    print("  certificates: " + json.dumps(inv))
-    ok = (n <= 10 and inv["idempotency_rel"] <= 1e-5
-          and inv["commutator_rel"] <= 5e-5
-          and inv["trace_abs_err"] / nel <= 1e-6
-          and math.isfinite(energy) and math.isfinite(mu))
-    if not ok:
-        raise AssertionError("flagship certificates out of bounds")
-    if not counts["spgemm_band"]:
-        raise AssertionError("the flagship solve never launched the band "
-                             "kernel")
-    return counts
+    """The flagship solve on the card at 'high' (the reference's
+    setting), timed, then its certificates at 'highest'; then the same
+    at 'highest'.  Both must meet the bars.  -> the 'high' solve's
+    launch counts."""
+    config = trs4_tiers.CONFIGS["flagship"]
+    h, isq, nel = trs4_tiers.system(config["dim"], config["bs"], "cuda")
+    result = {}
+    for precision in ("high", "highest"):
+        params = flagship_params(config["k_out"], "pallas_band", precision)
+        warm = params.copy()
+        warm.max_iterations = 2
+        density.trs4(h, isq, nel, warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rho, energy, mu, n, counts = solve(h, isq, nel, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  '{precision}': {n} iterations, {wall:.3f} s wall, "
+              f"{wall / n:.4f} s per iteration, energy {energy!r}, mu "
+              f"{mu!r}, rho_nnz {rho.nnz}, peak memory {peak / 2**30:.2f} "
+              f"GiB, launches {counts}")
+        inv = purity_invariants(rho, h, nel, params.threshold)
+        del rho
+        torch.cuda.synchronize()
+        print(f"  '{precision}' certificates (at 'highest'): "
+              + json.dumps(inv))
+        ok = (n <= 10 and inv["idempotency_rel"] <= 1e-5
+              and inv["commutator_rel"] <= 5e-5
+              and inv["trace_abs_err"] / nel <= 1e-6
+              and math.isfinite(energy) and math.isfinite(mu))
+        if not ok:
+            raise AssertionError(f"flagship certificates at '{precision}' "
+                                 "out of bounds")
+        if not counts["spgemm_band"]:
+            raise AssertionError("the flagship solve never launched the "
+                                 "band kernel")
+        result[precision] = (wall, counts)
+    if not result["high"][1]["split_bf16"]:
+        raise AssertionError("the flagship solve at 'high' never launched "
+                             "the split pass")
+    print(f"  'high' against 'highest': {result['high'][0]:.3f} s against "
+          f"{result['highest'][0]:.3f} s")
+    return result["high"][1]
 
 
 def main() -> int:
@@ -823,7 +949,8 @@ def main() -> int:
     parity = run("parity", phase_parity)
     flagship = run("flagship", phase_flagship)
     counts = {k: parity[k] + flagship[k] for k in ("spgemm_band",
-                                                   "spgemm_general")}
+                                                   "spgemm_general",
+                                                   "split_bf16")}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "

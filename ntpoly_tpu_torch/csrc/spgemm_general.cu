@@ -7,76 +7,62 @@
 // structure pass assigned (dropped when >= k_out), followed by the
 // threshold flush and per-slot L1 norms.
 //
-// What bounds it on the H100: the bs x bs block products on the FP32
-// (or FP64) pipes.  Each product reads 2 bs^2 values and does 2 bs^3
-// operations, 64 operations per byte at bs = 128 in f32, so the kernel
-// sits above the memory roofline and is limited by how well the
-// register tile hides shared-memory traffic.
+// Tiers, as _kernel computes them:
+//   'high' on float32: the TPU's hand-made bf16x3 split (:169-180) on the
+//       tensor cores, through the band kernel's pieces: its split pass
+//       (spgemm_band.cu) writes the bfloat16 planes, and the product of
+//       tc.cuh walks the pairs whose plan entry names the tile.
+//   'bf16' on float32: the hi planes alone.
+//   'highest' (and every tier of float64, which the reference keeps
+//       exact): exact FMA products on the two-stage cp.async ring of
+//       tile.cuh, products in turn (s, then t), k ascending, one fma per
+//       k, as the stream and window kernels add them, so the three agree
+//       bit for bit.
 //
-// Design: output-stationary.  One thread block per (block-row r, output
-// slot g); the block walks the row's KA x KB plan entries, accumulates
-// every product whose entry equals g in registers (tile.cuh), and runs
-// the prune epilogue once.  No atomics, no second pass, and no row
-// chunking: the TPU's chunking existed for its scalar-memory limits.
-// B is read in its native [NBK, KB, bs, bs] layout with EMPTY slots
-// skipped, so no panel copy of B is built.  Later work: wgmma tiles fed
-// by TMA, and TF32x3 for the 'high' tier.
+// What bounds it on the H100: exact, the FP32 (or FP64) operations, 64
+// per byte at bs = 128 in float32, so the kernel sits above the memory
+// roofline and is limited by how well the register tile hides
+// shared-memory traffic; on the tensor cores, the bytes of A, B and C or
+// the three bf16 products, whichever is larger, plus the split pass's
+// bytes.
+//
+// Design: output-stationary, no atomics, no second pass, no row chunking
+// (the TPU's chunking existed for its scalar-memory limits).  Grid order
+// slot-fastest (tile = r * k_out + g), so the blocks of one row run
+// together and A[r, .] comes from L2.  B is read in its native [NBK, KB,
+// bs, bs] layout with EMPTY slots skipped, so no panel copy is built.
+#include "tc.cuh"
 #include "tile.cuh"
 
 namespace ntp {
 
-template <typename T, int TS>
-__global__ void __launch_bounds__(kThreads)
-general_kernel(const int* __restrict__ a_cols, const T* __restrict__ a_blocks,
-               const int* __restrict__ b_cols, const T* __restrict__ b_blocks,
-               const int* __restrict__ plan, T* __restrict__ out,
-               T* __restrict__ norms, int ka, int kb, int k_out, int bs,
-               T alpha, T threshold) {
-  __shared__ Smem<T, TS> sm;
-  __shared__ T red[kThreads / 32];
-  const int64_t r = blockIdx.x;
-  const int g = blockIdx.y;
-  const int64_t bb = int64_t(bs) * bs;
-  Acc<T, TS> acc;
-  acc.zero();
-  const int* prow = plan + r * ka * kb;
-  for (int s = 0; s < ka; ++s) {
-    const int ac = a_cols[r * ka + s];
-    if (ac == kEmpty) continue;
-    for (int t = 0; t < kb; ++t) {
-      if (prow[s * kb + t] != g) continue;
-      if (b_cols[int64_t(ac) * kb + t] == kEmpty) continue;
-      acc.mac(a_blocks + (r * ka + s) * bb,
-              b_blocks + (int64_t(ac) * kb + t) * bb, bs, sm);
-    }
-  }
-  const int64_t o = r * k_out + g;
-  store_pruned(acc, out + o * bb, norms + o, bs, alpha, threshold, red);
-}
+// The pair index (tile.cuh) of the general kernel, for both tiers: the
+// candidates p = s * KB + t; one feeds output slot g when its plan entry
+// is g and neither A slot s nor B slot (acols[r, s], t) is EMPTY.
+struct GeneralIndex {
+  const int* a_cols;
+  const int* b_cols;
+  const int* plan;
+  int ka, kb;
 
-template <typename T>
-int launch_general(const void* a_cols, const void* a_blocks,
-                   const void* b_cols, const void* b_blocks,
-                   const void* plan, void* out, void* norms, int rows,
-                   int ka, int kb, int k_out, int bs, double alpha,
-                   double threshold, void* stream) {
-  if (rows == 0 || k_out == 0) return 0;
-  const dim3 grid(rows, k_out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NTP_GENERAL(TS)                                                    \
-  general_kernel<T, TS><<<grid, kThreads, 0, st>>>(                        \
-      static_cast<const int*>(a_cols), static_cast<const T*>(a_blocks),    \
-      static_cast<const int*>(b_cols), static_cast<const T*>(b_blocks),    \
-      static_cast<const int*>(plan), static_cast<T*>(out),                 \
-      static_cast<T*>(norms), ka, kb, k_out, bs, T(alpha), T(threshold))
-  switch (tile_for(bs)) {
-    case 16: NTP_GENERAL(16); break;
-    case 32: NTP_GENERAL(32); break;
-    case 64: NTP_GENERAL(64); break;
-    default: NTP_GENERAL(128); break;
+  __device__ int slots() const { return ka * kb; }
+  __device__ int a_slot(int p) const { return p / kb; }
+  __device__ int64_t b_taken(int64_t r, int, int p) const {
+    return int64_t(a_cols[r * ka + p / kb]) * kb + p % kb;
   }
-#undef NTP_GENERAL
-  return static_cast<int>(cudaGetLastError());
+  __device__ int64_t b_block(int64_t r, int g, int p) const {
+    if (plan[r * ka * kb + p] != g) return -1;
+    const int ac = a_cols[r * ka + p / kb];
+    if (ac == kEmpty) return -1;
+    const int64_t blk = int64_t(ac) * kb + p % kb;
+    return b_cols[blk] == kEmpty ? -1 : blk;
+  }
+};
+
+inline GeneralIndex general_index(const void* a_cols, const void* b_cols,
+                                  const void* plan, int ka, int kb) {
+  return {static_cast<const int*>(a_cols), static_cast<const int*>(b_cols),
+          static_cast<const int*>(plan), ka, kb};
 }
 
 }  // namespace ntp
@@ -88,9 +74,9 @@ int ntp_spgemm_general_f32(const void* a_cols, const void* a_blocks,
                            const void* plan, void* out, void* norms,
                            int rows, int ka, int kb, int k_out, int bs,
                            double alpha, double threshold, void* stream) {
-  return ntp::launch_general<float>(a_cols, a_blocks, b_cols, b_blocks,
-                                    plan, out, norms, rows, ka, kb, k_out,
-                                    bs, alpha, threshold, stream);
+  return ntp::launch_pairs<float>(
+      ntp::general_index(a_cols, b_cols, plan, ka, kb), a_blocks, b_blocks,
+      out, norms, rows, k_out, bs, alpha, threshold, stream);
 }
 
 int ntp_spgemm_general_f64(const void* a_cols, const void* a_blocks,
@@ -98,9 +84,28 @@ int ntp_spgemm_general_f64(const void* a_cols, const void* a_blocks,
                            const void* plan, void* out, void* norms,
                            int rows, int ka, int kb, int k_out, int bs,
                            double alpha, double threshold, void* stream) {
-  return ntp::launch_general<double>(a_cols, a_blocks, b_cols, b_blocks,
-                                     plan, out, norms, rows, ka, kb, k_out,
-                                     bs, alpha, threshold, stream);
+  return ntp::launch_pairs<double>(
+      ntp::general_index(a_cols, b_cols, plan, ka, kb), a_blocks, b_blocks,
+      out, norms, rows, k_out, bs, alpha, threshold, stream);
+}
+
+// 'high' (a_lo and b_lo given) or 'bf16' (both null) on the bfloat16
+// planes of A [rows, ka, bs, bs] and B [nbk, kb, bs, bs]; float32 out.
+int ntp_spgemm_general_tc(const void* a_cols, const void* a_hi,
+                          const void* a_lo, const void* b_cols,
+                          const void* b_hi, const void* b_lo,
+                          const void* plan, void* out, void* norms,
+                          int rows, int ka, int kb, int nbk, int k_out,
+                          int bs, double alpha, double threshold,
+                          void* stream) {
+  const ntp::tc::Pairs<ntp::GeneralIndex> src{
+      ntp::general_index(a_cols, b_cols, plan, ka, kb), k_out};
+  const ntp::tc::Params p{static_cast<float*>(out),
+                          static_cast<float*>(norms),
+                          int64_t(rows) * k_out, bs, float(alpha),
+                          float(threshold)};
+  return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo,
+                         int64_t(nbk) * kb, src, p, stream);
 }
 
 const char* ntp_error_string(int code) {

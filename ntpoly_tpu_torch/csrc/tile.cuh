@@ -1,7 +1,8 @@
-// Shared pieces of the block SpGEMM kernels (spgemm_general.cu,
-// spgemm_band.cu, spgemm_stream.cu, spgemm_window.cu and the exact tier
-// of spgemm_uniform.cu; the tensor-core pieces of its other tiers are at
-// the end of the file): a thread block
+// Shared pieces of the block SpGEMM kernels: the exact tier of all of
+// them (spgemm_general.cu, spgemm_band.cu, spgemm_stream.cu,
+// spgemm_window.cu, spgemm_uniform.cu), and at the end of the file the
+// mma.sync pieces of the uniform kernel's tensor-core tiers (the band and
+// general kernels' tensor-core product is in tc.cuh).  A thread block
 // accumulates products of bs x bs blocks (bs a multiple of 8, at most
 // 128) into one output block held in registers, staging k-chunks of
 // both operands through shared memory.  The epilogue is the reference's
@@ -16,12 +17,11 @@
 // coalesced.  Rows and columns at or beyond bs are masked: their
 // staged operands are zero and they are never stored.
 //
-// Two ways to stage: Acc::mac loads each chunk synchronously (general
-// and band kernels); pipelined_outputs runs a two-stage cp.async ring
-// so that the next chunk is in flight while the current one is
-// multiplied (stream and window kernels).  Both add the products of an
-// output block in the same order (products in turn, k ascending, one
-// fma per k), so they give the same bits for the same products.
+// Staging: pipelined_outputs runs a two-stage cp.async ring so that the
+// next chunk is in flight while the current one is multiplied.  Every
+// kernel adds the products of an output block in the same order
+// (products in turn, k ascending, one fma per k), so they give the same
+// bits for the same products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,12 +35,6 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 16;  // depth of one staged k-chunk
 
 template <typename T, int TS>
-struct Smem {
-  T a[kChunk][TS + 1];  // A chunk, transposed: a[k][m] = A[m][k0 + k]
-  T b[kChunk][TS];      // B chunk: b[k][n] = B[k0 + k][n]
-};
-
-template <typename T, int TS>
 struct Acc {
   static constexpr int TM = TS / 16;
   T v[TM][TM];
@@ -50,39 +44,6 @@ struct Acc {
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TM; ++j) v[i][j] = T(0);
-  }
-
-  // v += A @ B for two row-major bs x bs blocks.  Every thread of the
-  // block must call this (it synchronises).
-  __device__ __forceinline__ void mac(const T* __restrict__ a,
-                                      const T* __restrict__ b, int bs,
-                                      Smem<T, TS>& sm) {
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    for (int k0 = 0; k0 < bs; k0 += kChunk) {
-      for (int i = tid; i < TS * kChunk; i += kThreads) {
-        const int m = i / kChunk, k = i % kChunk;
-        sm.a[k][m] = (m < bs && k0 + k < bs) ? a[m * bs + k0 + k] : T(0);
-      }
-      for (int i = tid; i < TS * kChunk; i += kThreads) {
-        const int k = i / TS, n = i % TS;
-        sm.b[k][n] = (n < bs && k0 + k < bs) ? b[(k0 + k) * bs + n] : T(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        T ra[TM], rb[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) ra[i] = sm.a[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TM; ++j) rb[j] = sm.b[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TM; ++j) v[i][j] = fma(ra[i], rb[j], v[i][j]);
-      }
-      __syncthreads();
-    }
   }
 };
 
@@ -198,8 +159,16 @@ inline int tile_for(int bs) {
   return bs <= 16 ? 16 : bs <= 32 ? 32 : bs <= 64 ? 64 : 128;
 }
 
+// Raise the dynamic shared-memory cap of `kernel` to `bytes` (needed
+// above 48 KB) -> cudaError_t.
+template <typename K>
+inline int allow_smem(K kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 // ---------------------------------------------------------------------------
-// the cp.async ring (spgemm_stream.cu, spgemm_window.cu)
+// the cp.async ring
 // ---------------------------------------------------------------------------
 
 // 16 bytes global -> shared, asynchronously; !valid writes 16 zero bytes
@@ -362,6 +331,87 @@ __device__ __forceinline__ void pipelined_outputs(const Src& src, int n_out,
     else
       store_pruned(acc, src.out(o), src.norm(o), bs, alpha, threshold, red);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the band and general kernels' exact tier: one thread block per output
+// tile, walking the row's pairs
+// ---------------------------------------------------------------------------
+//
+// Index names the pairs of output tile r * k_out + g, A slots ascending
+// (the tensor-core product of tc.cuh takes the same interface): a tile
+// walks positions p < slots(); b_block(r, g, p) is the B block that
+// position p reads when it feeds slot g, else -1; a_slot(p) is its A
+// slot (of KA); b_taken(r, g, p) is the same B block for a position that
+// b_block took, from fewer loads.
+
+// The work of one tile for pipelined_outputs.
+template <typename T, class Index>
+struct PairWork {
+  Index idx;
+  const T* a_blocks;
+  const T* b_blocks;
+  T* c_blocks;
+  T* c_norms;
+  int64_t r, tile;
+  int g, bs;
+
+  __device__ bool use(int, int p) const { return idx.b_block(r, g, p) >= 0; }
+  __device__ const T* a(int, int p) const {
+    return a_blocks + (r * idx.ka + idx.a_slot(p)) * int64_t(bs) * bs;
+  }
+  __device__ const T* b(int, int p) const {  // p was taken by use()
+    return b_blocks + idx.b_taken(r, g, p) * int64_t(bs) * bs;
+  }
+  __device__ T* out(int) const { return c_blocks + tile * int64_t(bs) * bs; }
+  __device__ T* norm(int) const { return c_norms + tile; }
+};
+
+// Grid order slot-fastest (tile = r * k_out + g), so that the tiles
+// sharing A[r, .] run together and A comes from L2.
+template <typename T, int TS, class Index>
+__global__ void __launch_bounds__(kThreads)
+pair_kernel(Index idx, const T* __restrict__ a_blocks,
+            const T* __restrict__ b_blocks, T* __restrict__ out,
+            T* __restrict__ norms, int k_out, int bs, T alpha, T threshold) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T red[kThreads / 32];
+  const int64_t tile = blockIdx.x;
+  const PairWork<T, Index> work{idx,  a_blocks, b_blocks,
+                                out,  norms,    tile / k_out,
+                                tile, int(tile % k_out), bs};
+  pipelined_outputs<T, T, TS>(work, 1, idx.slots(), bs, bs, alpha,
+                              threshold,
+                              reinterpret_cast<Stage<T, TS>*>(smem), red);
+}
+
+// -> cudaError_t
+template <typename T, class Index>
+int launch_pairs(const Index& idx, const void* a_blocks,
+                 const void* b_blocks, void* out, void* norms, int rows,
+                 int k_out, int bs, double alpha, double threshold,
+                 void* stream) {
+  if (rows == 0 || k_out == 0) return 0;
+  const unsigned tiles = unsigned(rows) * unsigned(k_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NTP_PAIRS(TS)                                                      \
+  {                                                                        \
+    const int smem = ring_bytes<T, TS>();                                  \
+    auto* kernel = pair_kernel<T, TS, Index>;                              \
+    if (int err = allow_smem(kernel, smem)) return err;                    \
+    kernel<<<tiles, kThreads, smem, st>>>(                                 \
+        idx, static_cast<const T*>(a_blocks),                              \
+        static_cast<const T*>(b_blocks), static_cast<T*>(out),             \
+        static_cast<T*>(norms), k_out, bs, T(alpha), T(threshold));        \
+  }
+  switch (tile_for(bs)) {
+    case 16: NTP_PAIRS(16); break;
+    case 32: NTP_PAIRS(32); break;
+    case 64: NTP_PAIRS(64); break;
+    default: NTP_PAIRS(128); break;
+  }
+#undef NTP_PAIRS
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -586,14 +636,6 @@ __device__ __forceinline__ void store_mma(const MmaAcc& acc,
   for (int c = threadIdx.x; c < bs; c += kThreads)
     norms[c] = red[c] + red[kMmaTile + c];
   __syncthreads();  // red is reused by the next output
-}
-
-// Raise the dynamic shared-memory cap of `kernel` to `bytes` (needed
-// above 48 KB) -> cudaError_t.
-template <typename K>
-inline int allow_smem(K kernel, int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 }  // namespace ntp

@@ -12,6 +12,12 @@ runs one of two:
   * ``spgemm_band``: for banded operands, offset form (slot t holds col
     ``occ0 + t``), addressed arithmetically from ``band_plan``.
 
+Both run the reference's tiers (``kernel_tier``): float32 at 'high' is
+its bfloat16 hi/lo split (``split_bf16x3``) and at 'bf16' the hi part
+alone, on the tensor cores after the split pass (``split_bf16``) has
+written the planes; 'highest', 'default' and float64 at every tier are
+exact.
+
 Two more compute the general kernel's rank form from the panel layout
 of B (``b_panel``); as in the reference, only the low-K profile
 (``profiling/lowk.py``) calls them:
@@ -56,7 +62,7 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper (reset with reset_launches)
 launches = {"spgemm_general": 0, "spgemm_band": 0, "spgemm_stream": 0,
-            "spgemm_window": 0, "spgemm_uniform": 0}
+            "spgemm_window": 0, "spgemm_uniform": 0, "split_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -233,6 +239,20 @@ def eligible(dtype, bs: int) -> bool:
             and 0 < bs <= 128)
 
 
+def kernel_tier(dtype, precision: str) -> str:
+    """The tier the band and general kernels run for blocks of ``dtype``
+    at ``precision``, as the reference's kernels do: float32 at 'high'
+    and 'bf16' runs that tier (the bfloat16 split, on the tensor cores);
+    everything else runs 'highest', exact products (the reference keeps
+    float64 exact at every tier; 'default', one bf16 pass on the TPU,
+    stays exact here)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    if dtype == torch.float32 and precision in ("high", "bf16"):
+        return precision
+    return "highest"
+
+
 def b_panel(b_cols: Tensor, b_blocks: Tensor) -> Tensor:
     """B rows concatenated along columns, [NBK, bs, KB*bs], with EMPTY
     slots zeroed: block t of row k is panel[k, :, t*bs:(t+1)*bs] (the
@@ -273,11 +293,12 @@ def _panel_b(a_col: Tensor, b_row: Tensor, panel: Tensor, t: int):
 
 
 def _plain(a_cols, a_blocks, kb, b_of, slot_of, cut, k_out, alpha,
-           threshold, dtype=None):
+           threshold, dtype=None, tier="highest"):
     """Output slot slot_of(s, t)[r] of row r receives A[r, s] @ b_of(s,
     t)[0][r] where b_of(s, t)[1][r] holds, unless the slot is >= cut;
-    products and sums in ``dtype`` (default A's); then the prune
-    epilogue.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
+    products at ``tier`` (``_tier_bmm``) and sums in ``dtype`` (default
+    A's); then the prune epilogue.  -> (blocks [R, k_out, bs, bs], norms
+    [R, k_out])."""
     R, KA = a_cols.shape
     bs = a_blocks.shape[-1]
     dtype = dtype or a_blocks.dtype
@@ -288,36 +309,39 @@ def _plain(a_cols, a_blocks, kb, b_of, slot_of, cut, k_out, alpha,
             bblk, ok = b_of(s, t)
             g = slot_of(s, t)
             g = torch.where(ok & (g < cut), g, k_out)
-            acc.index_add_(0, rows + g, torch.bmm(a_blocks[:, s].to(dtype),
-                                                  bblk.to(dtype)))
+            acc.index_add_(0, rows + g, _tier_bmm(
+                a_blocks[:, s].to(dtype), bblk.to(dtype), tier))
     acc = acc.reshape(R, k_out + 1, bs, bs)[:, :k_out]
     return _epilogue(acc, alpha, threshold)
 
 
 def spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks, plan, *,
-                         k_out: int, alpha: float, threshold: float):
+                         k_out: int, alpha: float, threshold: float,
+                         precision: str = "highest"):
     """Plain version of the general kernel: output slot
     plan[r, s*KB + t] receives A[r, s] @ B[acols[r, s], t] (dropped when
-    >= k_out), then the prune epilogue.  -> (blocks [R, k_out, bs, bs],
-    norms [R, k_out])."""
+    >= k_out) at ``kernel_tier``, then the prune epilogue.  -> (blocks
+    [R, k_out, bs, bs], norms [R, k_out])."""
     KB = b_cols.shape[1]
     return _plain(a_cols, a_blocks, KB,
                   lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
                   lambda s, t: plan[:, s * KB + t].long(), k_out, k_out,
-                  alpha, threshold)
+                  alpha, threshold,
+                  tier=kernel_tier(a_blocks.dtype, precision))
 
 
 def spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0, *,
                       k_out: int, span: int, alpha: float,
-                      threshold: float):
+                      threshold: float, precision: str = "highest"):
     """Plain version of the band kernel: output slot t < span of row r
     receives A[r, s] @ B[acols[r, s], t - gg0[r, s]] for every valid A
-    slot s with 0 <= t - gg0 < KB; slots >= span are zero.
-    -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
+    slot s with 0 <= t - gg0 < KB, at ``kernel_tier``; slots >= span are
+    zero.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
     return _plain(a_cols, a_blocks, b_cols.shape[1],
                   lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
                   lambda s, t: gg0[:, s].long() + t, span, k_out,
-                  alpha, threshold)
+                  alpha, threshold,
+                  tier=kernel_tier(a_blocks.dtype, precision))
 
 
 def spgemm_stream_plain(a_cols, a_blocks, panel, plan, *, kb: int,
@@ -470,15 +494,17 @@ def _uniform_rows(a_cols: Tensor, wlo: Tensor, g_rows: int, w: int,
 
 def _tier_bmm(a: Tensor, b: Tensor, precision: str) -> Tensor:
     """Batched block products at one tier: 'highest' in the operands'
-    dtype; 'high' as the three bf16 terms and 'bf16' on bfloat16
-    operands, each product exact in float32, sums in float32."""
+    dtype; 'high' as the three bf16 terms and 'bf16' on the operands
+    rounded to bfloat16, each product exact in float32, sums in
+    float32."""
     f = torch.float32
     if precision == "high":
         (ah, al), (bh, bl) = split_bf16x3(a), split_bf16x3(b)
         return (torch.bmm(ah.to(f), bh.to(f)) + torch.bmm(al.to(f), bh.to(f))
                 + torch.bmm(ah.to(f), bl.to(f)))
     if precision == "bf16":
-        return torch.bmm(a.to(f), b.to(f))
+        bf = torch.bfloat16
+        return torch.bmm(a.to(bf).to(f), b.to(bf).to(f))
     return torch.bmm(a, b)
 
 
@@ -571,63 +597,116 @@ _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
            torch.bfloat16: "_bf16"}
 
 
-def _launch(entry, dtype, args, ints, alpha, threshold, what):
+def _launch(entry, key, args, ints, scalars=()):
+    """Launch C entry ``entry`` on the current stream with the pointers
+    of ``args`` (None: a null pointer), then ``ints`` and ``scalars``;
+    raise on a CUDA error, else count one launch of ``key``."""
     from . import _cuda
-    lib = _cuda.library()
-    fn = getattr(lib, entry + _SUFFIX[dtype])
+    fn = getattr(_cuda.library(), entry)
     stream = torch.cuda.current_stream().cuda_stream
-    code = fn(*[x.data_ptr() for x in args], *ints, float(alpha),
-              float(threshold), stream)
-    _cuda.check(code, what)
-    launches[entry[4:]] += 1
+    code = fn(*[None if x is None else x.data_ptr() for x in args], *ints,
+              *map(float, scalars), stream)
+    _cuda.check(code, key)
+    launches[key] += 1
+
+
+def split_bf16(x: Tensor, *, lo: bool = True):
+    """The split pass (``csrc/spgemm_band.cu``) on a CUDA tensor, its
+    plain version (``split_bf16x3``) on a CPU tensor: the bfloat16
+    planes (hi, lo) of float32 x, lo None unless asked for."""
+    if x.device.type == "cpu":
+        return split_bf16x3(x) if lo else (x.to(torch.bfloat16), None)
+    if x.device.type != "cuda":
+        raise ValueError(f"no split kernel for {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the split pass takes float32, got {x.dtype}")
+    x = x.contiguous()
+    if x.numel() % 4 or x.data_ptr() % 16:
+        raise ValueError("the split pass takes whole float4 vectors on 16 "
+                         "bytes")
+    hi = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    low = torch.empty_like(hi) if lo else None
+    _launch("ntp_split_bf16", "split_bf16", (x, hi, low), (x.numel(),))
+    return hi, low
+
+
+def _planes(ab: Tensor, bb: Tensor, tier: str):
+    """The bfloat16 planes of A and B for a tensor-core tier, B's taken
+    from A's when both are one storage (X @ X splits X once)."""
+    pa = split_bf16(ab, lo=tier == "high")
+    if bb.data_ptr() == ab.data_ptr() and bb.shape == ab.shape:
+        return pa, pa
+    return pa, split_bf16(bb, lo=tier == "high")
+
+
+def _run_kernel(name, a_cols, a_blocks, b_cols, b_blocks, idx, want,
+                tail, precision, alpha, threshold, planes=None):
+    """Check and launch the band or general kernel ``name`` (``idx``:
+    its gg0 or plan, of shape ``want``) at ``kernel_tier``: the exact
+    instance of the operands' dtype, or the split pass and the
+    tensor-core product (float32 out).  ``tail``: the C entry's ints
+    after (R, KA, KB[, NBK]).  ``planes``: the ``split_bf16`` planes of
+    A and B, split already, for timing the product alone."""
+    ac, ab, bc, bb, ix = _check_operands(a_cols, a_blocks, b_cols,
+                                         b_blocks, idx)
+    R, KA = ac.shape
+    NBK, KB = bc.shape
+    bs = ab.shape[-1]
+    if tuple(ix.shape) != want:
+        raise ValueError(f"index shape {tuple(ix.shape)} != {want}")
+    if ab.data_ptr() % 16 or bb.data_ptr() % 16:
+        raise ValueError("A and B must start on 16 bytes")
+    tier = kernel_tier(ab.dtype, precision)
+    k_out = tail[0]
+    out = ab.new_empty((R, k_out, bs, bs))
+    nrm = ab.new_empty((R, k_out))
+    if tier == "highest":
+        _launch(f"ntp_{name}{_SUFFIX[ab.dtype]}", name,
+                (ac, ab, bc, bb, ix, out, nrm), (R, KA, KB, *tail),
+                (alpha, threshold))
+    else:
+        (ah, al), (bh, bl) = planes or _planes(ab, bb, tier)
+        _launch(f"ntp_{name}_tc", name,
+                (ac, ah, al, bc, bh, bl, ix, out, nrm),
+                (R, KA, KB, NBK, *tail), (alpha, threshold))
+    return out, nrm
 
 
 def spgemm_general(a_cols, a_blocks, b_cols, b_blocks, plan, *,
-                   k_out: int, alpha: float, threshold: float):
-    """General kernel (``csrc/spgemm_general.cu``) on CUDA tensors, its
-    plain version on CPU tensors."""
+                   k_out: int, alpha: float, threshold: float,
+                   precision: str = "highest"):
+    """General kernel (``csrc/spgemm_general.cu``) on CUDA tensors at
+    ``kernel_tier`` (float32 'high' and 'bf16': the split pass, then the
+    tensor cores), its plain version on CPU tensors."""
     if a_blocks.device.type == "cpu":
         return spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks,
                                     plan, k_out=k_out, alpha=alpha,
-                                    threshold=threshold)
+                                    threshold=threshold, precision=precision)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
-    ac, ab, bc, bb, pl = _check_operands(a_cols, a_blocks, b_cols,
-                                         b_blocks, plan)
-    R, KA = ac.shape
-    KB = bc.shape[1]
-    bs = ab.shape[-1]
-    if pl.shape != (R, KA * KB):
-        raise ValueError(f"plan shape {tuple(pl.shape)} != {(R, KA * KB)}")
-    out = ab.new_empty((R, k_out, bs, bs))
-    nrm = ab.new_empty((R, k_out))
-    _launch("ntp_spgemm_general", ab.dtype, (ac, ab, bc, bb, pl, out, nrm),
-            (R, KA, KB, k_out, bs), alpha, threshold, "spgemm_general")
-    return out, nrm
+    R, KA = a_cols.shape
+    return _run_kernel("spgemm_general", a_cols, a_blocks, b_cols, b_blocks,
+                       plan, (R, KA * b_cols.shape[1]),
+                       (k_out, a_blocks.shape[-1]), precision, alpha,
+                       threshold)
 
 
 def spgemm_band(a_cols, a_blocks, b_cols, b_blocks, gg0, *, k_out: int,
-                span: int, alpha: float, threshold: float):
-    """Band kernel (``csrc/spgemm_band.cu``) on CUDA tensors, its plain
-    version on CPU tensors."""
+                span: int, alpha: float, threshold: float,
+                precision: str = "highest"):
+    """Band kernel (``csrc/spgemm_band.cu``) on CUDA tensors at
+    ``kernel_tier`` (float32 'high' and 'bf16': the split pass, then the
+    tensor cores), its plain version on CPU tensors."""
     if a_blocks.device.type == "cpu":
         return spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0,
                                  k_out=k_out, span=span, alpha=alpha,
-                                 threshold=threshold)
+                                 threshold=threshold, precision=precision)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
-    ac, ab, bc, bb, g0 = _check_operands(a_cols, a_blocks, b_cols,
-                                         b_blocks, gg0)
-    R, KA = ac.shape
-    KB = bc.shape[1]
-    bs = ab.shape[-1]
-    if g0.shape != ac.shape:
-        raise ValueError(f"gg0 shape {tuple(g0.shape)} != {(R, KA)}")
-    out = ab.new_empty((R, k_out, bs, bs))
-    nrm = ab.new_empty((R, k_out))
-    _launch("ntp_spgemm_band", ab.dtype, (ac, ab, bc, bb, g0, out, nrm),
-            (R, KA, KB, k_out, span, bs), alpha, threshold, "spgemm_band")
-    return out, nrm
+    return _run_kernel("spgemm_band", a_cols, a_blocks, b_cols, b_blocks,
+                       gg0, tuple(a_cols.shape),
+                       (k_out, span, a_blocks.shape[-1]), precision, alpha,
+                       threshold)
 
 
 def spgemm_stream(a_cols, a_blocks, panel, plan, *, kb: int, k_out: int,
@@ -650,9 +729,9 @@ def spgemm_stream(a_cols, a_blocks, panel, plan, *, kb: int, k_out: int,
     bs = ab.shape[-1]
     out = ab.new_empty((R, k_out, bs, bs))
     nrm = ab.new_empty((R, k_out))
-    _launch("ntp_spgemm_stream", ab.dtype, (ac, ab, bp, pl, out, nrm),
-            (R, KA, kb, bp.shape[0], k_out, bs), alpha, threshold,
-            "spgemm_stream")
+    _launch("ntp_spgemm_stream" + _SUFFIX[ab.dtype], "spgemm_stream",
+            (ac, ab, bp, pl, out, nrm), (R, KA, kb, bp.shape[0], k_out, bs),
+            (alpha, threshold))
     return out, nrm
 
 
@@ -678,9 +757,10 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     bs = ab.shape[-1]
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=ab.device)
     nrm = torch.empty((R, k_out), dtype=dt, device=ab.device)
-    _launch("ntp_spgemm_window", ab.dtype, (ac, ab, bp, pl, wl, out, nrm),
-            (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w), alpha,
-            threshold, "spgemm_window")
+    _launch("ntp_spgemm_window" + _SUFFIX[ab.dtype], "spgemm_window",
+            (ac, ab, bp, pl, wl, out, nrm),
+            (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w),
+            (alpha, threshold))
     return out, nrm
 
 
@@ -725,10 +805,11 @@ def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
         raise ValueError("A and B must start on 16 bytes")
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=dev)
     nrm = torch.empty((R, k_out, bs), dtype=dt, device=dev)
-    _launch("ntp_spgemm_uniform", ab.dtype, (ac, ab, bb, wl, out, nrm),
+    _launch("ntp_spgemm_uniform" + _SUFFIX[ab.dtype], "spgemm_uniform",
+            (ac, ab, bb, wl, out, nrm),
             (R, KA, kb, bb.shape[0], k_out, span, bs, g_rows, w,
              int(addressing == "position"), int(precision == "high")),
-            alpha, threshold, "spgemm_uniform")
+            (alpha, threshold))
     return out, nrm
 
 
@@ -755,10 +836,12 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     general one outside its regime, with a warning), and a violated band
     assumption poisons ucnt to EMPTY; 'off' never uses the band kernel.
 
-    precision: 'highest', 'high' and 'default' all run exact products
-    (float32 FMA for float32 blocks); 'bf16' rounds float32 operands to
-    bfloat16 first and accumulates in float32.  alpha and threshold are
-    rounded to float32 first, as the reference does.
+    precision: the kernels' tier (``kernel_tier``), as the reference's
+    kernels run it: for float32 blocks 'high' is the bfloat16 hi/lo
+    split (three products, float32 sums) and 'bf16' the operands
+    rounded to bfloat16, both on the tensor cores; 'highest' and
+    'default' are exact, as is float64 at every tier.  alpha and
+    threshold are rounded to float32 first, as the reference does.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
@@ -770,13 +853,11 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     if dt.is_complex:
         raise TypeError("the SpGEMM kernels are real-only")
     plan, occp, ucnt = structure_plan(a_cols, b_cols, k_out)
-    ab, bb = a_blocks.to(dt), b_blocks.to(dt)
-    if precision == "bf16" and dt == torch.float32:
-        ab = ab.to(torch.bfloat16).to(dt)
-        bb = bb.to(torch.bfloat16).to(dt)
     alpha = float(np.float32(alpha))
     threshold = float(np.float32(threshold))
-    args = (a_cols, ab, b_cols, bb)
+    args = (a_cols, a_blocks.to(dt), b_cols, b_blocks.to(dt))
+    kw = dict(k_out=k_out, alpha=alpha, threshold=threshold,
+              precision=precision)
 
     g_rows, wv4 = _v4_pick(KA, KB, k_out, R, NBK)
     if band_mode == "off":
@@ -797,18 +878,15 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
         # 'auto' reads the choice back to the host (one scalar per
         # multiply) so that only one of the two kernels launches
         if band_mode == "force" or bool(use_band):
-            cb, nm = spgemm_band(*args, gg0, k_out=k_out, span=span,
-                                 alpha=alpha, threshold=threshold)
+            cb, nm = spgemm_band(*args, gg0, span=span, **kw)
             occ_used = occ0[:, None] + torch.arange(
                 k_out, dtype=torch.int32, device=occ0.device)
             if band_mode == "force":
                 ucnt = torch.where(use_band, ucnt,
                                    ucnt.new_full((), EMPTY))
         else:
-            cb, nm = spgemm_general(*args, plan, k_out=k_out, alpha=alpha,
-                                    threshold=threshold)
+            cb, nm = spgemm_general(*args, plan, **kw)
     else:
-        cb, nm = spgemm_general(*args, plan, k_out=k_out, alpha=alpha,
-                                threshold=threshold)
+        cb, nm = spgemm_general(*args, plan, **kw)
     cc = torch.where(nm > 0, occ_used, occ_used.new_full((), EMPTY))
     return cc, cb, ucnt

@@ -19,11 +19,11 @@ warm-up:
   stream_same_bytes  an elementwise pass that reads and writes the
                      bytes the kernels must move (A, the panel, C)
 
-'highest' and 'high' run exact float32 products in both kernels, so
-each pair is one kernel instance timed twice.  The window kernel's
-'bf16' arm reads bfloat16 operands; the band kernel has no bfloat16
-instance, so its 'bf16' arm runs on float32 operands rounded to
-bfloat16, as ``spgemm`` does.
+The window kernel runs 'highest' and 'high' as exact float32 products,
+one kernel instance timed twice; its 'bf16' arm reads bfloat16
+operands.  The band kernel runs the reference's tiers on float32 X:
+'highest' exact, 'high' the bf16x3 split and 'bf16' the hi part, the
+last two as the split pass plus the tensor-core product.
 
 Two of the reference's arms are not carried over: the row-chunked v1
 and v2 variants (with ``_row_chunk``, and the single v1 call that
@@ -153,7 +153,6 @@ def arms(op: LowK) -> dict:
     win = dict(kb=ka, g_rows=op.g_rows, w=op.w, **kw)
     ab3_bf16 = ab3.to(torch.bfloat16)
     panel_bf16 = op.panel.to(torch.bfloat16)
-    ab_bf16 = ab.to(torch.bfloat16).to(torch.float32)
 
     def window(precision):
         if precision == "bf16":
@@ -163,9 +162,9 @@ def arms(op: LowK) -> dict:
         return lambda: sp.spgemm_window(ac3, ab3, op.panel, plan3, op.wlo,
                                         precision=precision, **win)
 
-    def band(blocks):
-        return lambda: sp.spgemm_band(ac, blocks, ac, blocks, op.gg0,
-                                      span=op.span, **kw)
+    def band(precision):
+        return lambda: sp.spgemm_band(ac, ab, ac, ab, op.gg0, span=op.span,
+                                      precision=precision, **kw)
 
     return {
         "matmul": lambda: alg.matmul(op.h, op.h, threshold=op.threshold,
@@ -178,9 +177,9 @@ def arms(op: LowK) -> dict:
         "window_highest": window("highest"),
         "window_high": window("high"),
         "window_bf16": window("bf16"),
-        "band_highest": band(ab),
-        "band_high": band(ab),
-        "band_bf16": band(ab_bf16),
+        "band_highest": band("highest"),
+        "band_high": band("high"),
+        "band_bf16": band("bf16"),
     }
 
 

@@ -25,11 +25,11 @@ through these arms (line numbers of ``profile_lowk_r5.py``):
                                panels, TF32 off; the library yardstick
   dense_same_flops, stream_same_bytes   the anchors of ``lowk``
 
-The port's band kernel and ``matmul`` take no tier: 'highest' and
-'high' both run exact float32 there, so each such pair is one call timed
-twice ('bf16' rounds the operands to bfloat16 first).  The uniform
-kernel runs the TPU's tiers: 'highest' exact, 'high' the bf16x3 split
-and 'bf16' bfloat16 operands, the last two on the tensor cores.  The
+The band kernel (and so ``matmul``) and the uniform kernel run the
+TPU's tiers: 'highest' exact, 'high' the bf16x3 split and 'bf16' the
+operands rounded to bfloat16, the last two on the tensor cores (the
+band kernel after its split pass, on float32 X; the uniform kernel's
+'bf16' on a bfloat16 copy of X).  The
 uniform and diag arms compute the experiments' functions, which equal X
 @ X only on the interior rows (``interior``): at the edges the static
 offsets and the positional rows read other blocks, as on the TPU.
