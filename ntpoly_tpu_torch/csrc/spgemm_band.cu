@@ -53,6 +53,8 @@ struct BandShape {
   const int* b_cols;
   const int* gg0;
   int ka, kb, span;
+
+  __device__ int b_col(int) const { return 0; }  // B is block planes
 };
 
 // The exact ring: the A slots s, B slot tb = t - gg0[r, s], the three
@@ -94,7 +96,8 @@ inline BandShape band_shape(const void* a_cols, const void* b_cols,
 }
 
 // ---------------------------------------------------------------------------
-// the split pass (also run before the general kernel's tensor-core tiers)
+// the split pass (also run before the general, window and uniform
+// kernels' 'high')
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint2 pack(const __nv_bfloat162 (&v)[2]) {
@@ -114,7 +117,7 @@ split_kernel(const float4* __restrict__ x, uint2* __restrict__ hi,
   for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
        i += step) {
     __nv_bfloat162 h[2], l[2];
-    split_bf16(x[i], h, l);
+    tc::split_bf16(x[i], h, l);
     hi[i] = pack(h);
     if (lo) lo[i] = pack(l);
   }
@@ -161,7 +164,7 @@ int ntp_spgemm_band_tc(const void* a_cols, const void* a_hi,
                           int64_t(rows) * k_out, bs, float(alpha),
                           float(threshold)};
   return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo,
-                         int64_t(nbk) * kb, src, p, stream);
+                         int64_t(nbk) * kb, bs, src, p, stream);
 }
 
 // The split pass over n floats (n a multiple of 4, x 16-byte aligned):

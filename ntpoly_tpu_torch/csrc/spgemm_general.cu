@@ -47,6 +47,7 @@ struct GeneralIndex {
 
   __device__ int slots() const { return ka * kb; }
   __device__ int a_slot(int p) const { return p / kb; }
+  __device__ int b_col(int) const { return 0; }  // B is block planes
   __device__ int64_t b_taken(int64_t r, int, int p) const {
     return int64_t(a_cols[r * ka + p / kb]) * kb + p % kb;
   }
@@ -105,7 +106,7 @@ int ntp_spgemm_general_tc(const void* a_cols, const void* a_hi,
                           int64_t(rows) * k_out, bs, float(alpha),
                           float(threshold)};
   return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo,
-                         int64_t(nbk) * kb, src, p, stream);
+                         int64_t(nbk) * kb, bs, src, p, stream);
 }
 
 const char* ntp_error_string(int code) {

@@ -67,9 +67,9 @@ stream_kernel(const int* __restrict__ a_cols, const T* __restrict__ a_blocks,
   __shared__ T red[kThreads / 32];
   const StreamWork<T> work{a_cols, a_blocks, panel, plan, out, norms,
                            blockIdx.x, ka, kb, nbk, k_out, bs};
-  pipelined_outputs<T, T, TS>(work, k_out, ka * kb, bs, kb * bs, alpha,
-                              threshold,
-                              reinterpret_cast<Stage<T, TS>*>(smem), red);
+  pipelined_outputs<T, TS>(work, k_out, ka * kb, bs, kb * bs, alpha,
+                           threshold, reinterpret_cast<Stage<T, TS>*>(smem),
+                           red);
 }
 
 template <typename T>

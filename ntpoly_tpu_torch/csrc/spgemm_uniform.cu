@@ -25,40 +25,37 @@
 // v10's prep-under-dot is what the cp.async ring below already does, so
 // neither schedule is carried over.
 //
-// Tiers and instances:
-//   'highest' (float): the exact FMA core of tile.cuh on the two-stage
-//       cp.async ring (pipelined_outputs), as the stream and window
-//       kernels run it; the TPU's HIGHEST is f32-accurate.  The plain
-//       version also takes double; no profile path needs it here.
-//   'high' (float in, float out): the TPU's bf16x3 split on the tensor
-//       cores.  Each float k-chunk of depth 16 is staged by cp.async, then
-//       split in shared memory into [a_hi | a_lo | a_hi] and [b_hi ; b_hi ;
-//       b_lo] (split_chunk), and one mma.sync chain of depth 48 sums the
-//       three terms, as v9 and v10 fold them into one dot.
-//   'bf16' (bfloat16 in, float out): bf16 k-chunks of depth 32 go by
-//       cp.async straight into the mma stage.
+// Tiers (float32 operands, or bfloat16 at 'bf16'; float32 out):
+//   'highest': the exact FMA core of tile.cuh on the two-stage cp.async
+//       ring (pipelined_outputs), as the stream and window kernels run
+//       it; the TPU's HIGHEST is f32-accurate.  The plain version also
+//       takes double; no profile path needs it here.
+//   'high': the TPU's bf16x3 split, which v9 and v10 fold into one
+//       K-concatenated dot, as the band kernel runs it: the split pass
+//       (spgemm_band.cu) writes the planes once per operand storage (X @
+//       X splits X once), then the tensor-core product of tc.cuh, with
+//       its column-norm epilogue.
+//   'bf16' (bfloat16 operands): the same product on the operands
+//       themselves as the hi planes, with no split.
 //
 // What bounds it on the H100: at the 2^19-row low-K shape (bs 128, KA = KB
 // = 3, k_out = span = 5) one product is 36,864 block products, 154.6
 // GFLOP.  'highest' is bound by the FP32 pipes (2.31 ms at 67 TFLOP/s);
-// 'high' by HBM (2.96 GB in float, 0.88 ms at 3.35 TB/s; its 464 GFLOP
-// of bf16 tensor-core work is 0.47 ms at 989 TFLOP/s); 'bf16' by HBM too
-// (2.15 GB, 0.64 ms).  The tensor-core path's own limit is shared memory:
-// each 16-deep float chunk is read once and written three times as bf16
-// by the split, then read by ldmatrix, with three barriers a chunk.
+// 'high' by HBM (X and C in float, 0.644 ms at 3.35 TB/s; its 464 GFLOP
+// of bf16 tensor-core work is 0.47 ms at 989 TFLOP/s), plus the split
+// pass's own bytes; 'bf16' by HBM too (0.524 ms).
 //
-// Design: output-stationary, like the port's other kernels.  One thread
-// block per (group, output slot t), on a 1-D grid in group order, walks
-// the group's G rows, each through its static products s in [max(0, t -
-// KB + 1), min(KA - 1, t)], the accumulators in registers (64 floats a
-// thread on the tensor cores).  Rows i and i + 1 share KA - 1 window rows
-// and a group's k_out blocks run side by side, so L2 serves the reuse
-// that the TPU's VMEM window gives.  No atomics.  mma.sync with ldmatrix,
-// not wgmma: wgmma wants both operands in shared memory in swizzled
-// layouts behind descriptors (and K-major operands for tf32), and B is
-// N-major here; wgmma, TMA and swizzled stages are later work.
-#include <type_traits>
-
+// Design: output-stationary, like the port's other kernels, no atomics.
+// 'highest': one thread block per (group, output slot t), on a 1-D grid
+// in group order, walks the group's G rows, each through its static
+// products s in [max(0, t - KB + 1), min(KA - 1, t)], the accumulators in
+// registers; rows i and i + 1 share KA - 1 window rows and a group's
+// k_out blocks run side by side, so L2 serves the reuse that the TPU's
+// VMEM window gives.  The tensor cores: tc.cuh's persistent grid over
+// tiles (row r, slot t), slot-fastest, with the same static pairs, s
+// ascending (UniformIndex); on the interior rows these are the band
+// kernel's pairs in its order, so the two agree bit for bit there.
+#include "tc.cuh"
 #include "tile.cuh"
 
 namespace ntp {
@@ -74,13 +71,13 @@ struct UniformArgs {
   double alpha, threshold;
 };
 
-// The work of (group, slot t): output o is row r0 + o of the group, the
-// product slot p is the A slot s.
-template <typename Tin, typename T>
+// The work of (group, slot t) on the ring: output o is row r0 + o of the
+// group, the product slot p is the A slot s.
+template <typename T>
 struct UniformWork {
   const int* a_cols;
-  const Tin* a_blocks;
-  const Tin* b_blocks;
+  const T* a_blocks;
+  const T* b_blocks;
   T* c_blocks;
   T* c_norms;
   int64_t r0;
@@ -88,8 +85,8 @@ struct UniformWork {
 
   __device__ UniformWork(const UniformArgs& p)
       : a_cols(static_cast<const int*>(p.a_cols)),
-        a_blocks(static_cast<const Tin*>(p.a_blocks)),
-        b_blocks(static_cast<const Tin*>(p.b_blocks)),
+        a_blocks(static_cast<const T*>(p.a_blocks)),
+        b_blocks(static_cast<const T*>(p.b_blocks)),
         c_blocks(static_cast<T*>(p.out)),
         c_norms(static_cast<T*>(p.norms)),
         r0(int64_t(blockIdx.x / p.k_out) * p.g_rows),
@@ -107,10 +104,10 @@ struct UniformWork {
         positional(p.positional) {}
 
   __device__ bool use(int, int s) const { return t - s >= 0 && t - s < kb; }
-  __device__ const Tin* a(int o, int s) const {
+  __device__ const T* a(int o, int s) const {
     return a_blocks + ((r0 + o) * ka + s) * int64_t(bs) * bs;
   }
-  __device__ const Tin* b(int o, int s) const {
+  __device__ const T* b(int o, int s) const {
     const int64_t row =
         positional ? lo + o + s
                    : lo + min(max(a_cols[(r0 + o) * ka + s] - lo, 0), w - 1);
@@ -133,111 +130,63 @@ __global__ void __launch_bounds__(kThreads)
 uniform_fma_kernel(const UniformArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T red[kThreads / 32 * TS];
-  const UniformWork<T, T> work(p);
+  const UniformWork<T> work(p);
   if (work.t >= p.span) {
     for (int o = 0; o < p.g_rows; ++o)
       store_zero_cols(work.out(o), work.norm(o), p.bs);
     return;
   }
-  pipelined_outputs<T, T, TS, UniformWork<T, T>, true>(
+  pipelined_outputs<T, TS, UniformWork<T>, true>(
       work, p.g_rows, p.ka, p.bs, p.bs, T(p.alpha), T(p.threshold),
       reinterpret_cast<Stage<T, TS>*>(smem), red);
 }
 
 // ---------------------------------------------------------------------------
-// 'high' and 'bf16': the tensor cores
+// 'high' and 'bf16': the tensor cores (tc.cuh)
 // ---------------------------------------------------------------------------
 
-// The ring stage of each input type: float chunks of depth kChunk,
-// split after they land; bfloat16 chunks of depth 2 * kChunk, used as
-// they land.
-template <typename Tin>
-struct MmaRing {
-  using St = Stage<float, kMmaTile>;
-  static constexpr int kDepth = kChunk;
-  static constexpr int kSmem = 2 * sizeof(St) + sizeof(MmaStage<3 * kChunk>);
-};
-template <>
-struct MmaRing<__nv_bfloat16> {
-  using St = MmaStage<2 * kChunk>;
-  static constexpr int kDepth = 2 * kChunk;
-  static constexpr int kSmem = 2 * sizeof(St);
-};
+// The tensor-core product's pairs, as an index of tile.cuh's pair
+// interface walked by tc::Pairs: output tile r * k_out + t takes, for t
+// < span, the candidates p = s * KB + tb with s + tb = t, s ascending:
+// A block r * KA + s and B block row(r, s) * KB + tb, row as
+// UniformWork::b reads it.  Tiles t >= span have none and are stored as
+// zeros.
+struct UniformIndex {
+  const int* a_cols;
+  const int* wlo;
+  int ka, kb, nbk, span, g_rows, w, positional;
 
-template <typename Tin>
-__global__ void __launch_bounds__(kThreads)
-uniform_mma_kernel(const UniformArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2 * kMmaTile];
-  using St = typename MmaRing<Tin>::St;
-  constexpr int KC = MmaRing<Tin>::kDepth;
-  St* ring = reinterpret_cast<St*>(smem);
-  auto* split =
-      reinterpret_cast<MmaStage<3 * kChunk>*>(smem + 2 * sizeof(St));
-
-  const UniformWork<Tin, float> work(p);
-  const int bs = p.bs, t = work.t;
-  const int s_lo = max(0, t - p.kb + 1), s_hi = min(p.ka - 1, t);
-  if (t >= p.span || s_hi < s_lo) {
-    for (int o = 0; o < p.g_rows; ++o)
-      store_zero_cols(work.out(o), work.norm(o), bs);
-    return;
+  __device__ int slots() const { return ka * kb; }
+  __device__ int a_slot(int p) const { return p / kb; }
+  __device__ int b_col(int) const { return 0; }  // B is block planes
+  __device__ int64_t b_block(int64_t r, int t, int p) const {
+    const int s = p / kb, tb = p % kb;
+    if (t >= span || s + tb != t) return -1;
+    // wlo >= 0 from _v3_window; the clamp at 0 only keeps a bad caller's
+    // reads in bounds
+    const int lo = max(min(wlo[r / g_rows], nbk - w), 0);
+    const int64_t row =
+        positional ? lo + r % g_rows + s
+                   : lo + min(max(a_cols[r * ka + s] - lo, 0), w - 1);
+    return row * kb + tb;
   }
-  // steps q = (row o, product s, k-chunk c) in that order; step q + 1 is
-  // in flight while step q is multiplied
-  const int n_chunks = (bs + KC - 1) / KC;
-  const int per = (s_hi - s_lo + 1) * n_chunks;  // steps of one row
-  const int total = p.g_rows * per;
-  auto fetch = [&](int stage, int q) {
-    const int o = q / per, s = s_lo + q % per / n_chunks;
-    const int k0 = q % n_chunks * KC;
-    if constexpr (std::is_same<Tin, float>::value)
-      stage_chunk(ring[stage], work.a(o, s), work.b(o, s), bs, bs, k0);
-    else
-      stage_chunk_mma(ring[stage], work.a(o, s), work.b(o, s), bs, k0);
-    cp_async_commit();
-  };
-
-  MmaAcc acc;
-  int stage = 0;
-  fetch(0, 0);
-  for (int q = 0; q < total; ++q) {
-    if (q % per == 0) acc.zero();
-    if (q + 1 < total) {
-      fetch(stage ^ 1, q + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (std::is_same<Tin, float>::value) {
-      split_chunk(ring[stage], *split);
-      __syncthreads();
-      acc.mac(*split);
-    } else {
-      acc.mac(ring[stage]);
-    }
-    __syncthreads();  // the stage (and the split) is refilled next
-    stage ^= 1;
-    if ((q + 1) % per == 0) {
-      const int o = q / per;
-      store_mma(acc, work.out(o), work.norm(o), bs, float(p.alpha),
-                float(p.threshold), red);
-    }
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T>
-int launch_fma(const UniformArgs& p, int blocks, cudaStream_t st) {
+// 'highest' on float32 operands: the FMA core.  -> cudaError_t
+int launch_fma(const UniformArgs& p, void* stream) {
+  if (p.rows == 0 || p.k_out == 0) return 0;
+  const int blocks = p.rows / p.g_rows * p.k_out;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NTP_UNIFORM_FMA(TS)                                                \
   {                                                                        \
-    const int smem = ring_bytes<T, TS>();                                  \
-    if (int err = allow_smem(uniform_fma_kernel<T, TS>, smem)) return err; \
-    uniform_fma_kernel<T, TS><<<blocks, kThreads, smem, st>>>(p);          \
+    const int smem = ring_bytes<float, TS>();                              \
+    auto* kernel = uniform_fma_kernel<float, TS>;                          \
+    if (int err = allow_smem(kernel, smem)) return err;                    \
+    kernel<<<blocks, kThreads, smem, st>>>(p);                             \
   }
   switch (tile_for(p.bs)) {
     case 16: NTP_UNIFORM_FMA(16); break;
@@ -249,47 +198,45 @@ int launch_fma(const UniformArgs& p, int blocks, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin>
-int launch_mma(const UniformArgs& p, int blocks, cudaStream_t st) {
-  constexpr int smem = MmaRing<Tin>::kSmem;
-  if (int err = allow_smem(uniform_mma_kernel<Tin>, smem)) return err;
-  uniform_mma_kernel<Tin><<<blocks, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// split: the 'high' tier of float operands (the tensor cores); float at
-// 'highest' runs the FMA core, bfloat16 the tensor cores.
-template <typename Tin>
-int launch_uniform(const UniformArgs& p, int split, void* stream) {
-  if (p.rows == 0 || p.k_out == 0) return 0;
-  const int blocks = p.rows / p.g_rows * p.k_out;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
-    return launch_mma<Tin>(p, blocks, st);
-  } else {
-    return split ? launch_mma<float>(p, blocks, st)
-                 : launch_fma<float>(p, blocks, st);
-  }
-}
-
 }  // namespace ntp
 
-#define NTP_UNIFORM_ENTRY(NAME, TIN)                                          \
-  int NAME(const void* a_cols, const void* a_blocks, const void* b_blocks,    \
-           const void* wlo, void* out, void* norms, int rows, int ka, int kb, \
-           int nbk, int k_out, int span, int bs, int g_rows, int w,           \
-           int positional, int split, double alpha, double threshold,         \
-           void* stream) {                                                    \
-    const ntp::UniformArgs p{a_cols, a_blocks, b_blocks, wlo,    out,         \
-                             norms,  rows,     ka,       kb,     nbk,         \
-                             k_out,  span,     bs,       g_rows, w,           \
-                             positional,       alpha,    threshold};          \
-    return ntp::launch_uniform<TIN>(p, split, stream);                        \
-  }
-
 extern "C" {
-NTP_UNIFORM_ENTRY(ntp_spgemm_uniform_f32, float)
-NTP_UNIFORM_ENTRY(ntp_spgemm_uniform_bf16, __nv_bfloat16)
-}  // extern "C"
 
-#undef NTP_UNIFORM_ENTRY
+int ntp_spgemm_uniform_f32(const void* a_cols, const void* a_blocks,
+                           const void* b_blocks, const void* wlo, void* out,
+                           void* norms, int rows, int ka, int kb, int nbk,
+                           int k_out, int span, int bs, int g_rows, int w,
+                           int positional, double alpha, double threshold,
+                           void* stream) {
+  const ntp::UniformArgs p{a_cols, a_blocks, b_blocks, wlo,    out,
+                           norms,  rows,     ka,       kb,     nbk,
+                           k_out,  span,     bs,       g_rows, w,
+                           positional,       alpha,    threshold};
+  return ntp::launch_fma(p, stream);
+}
+
+// 'high' (a_lo and b_lo given: the split planes of float32 operands) or
+// 'bf16' (both null: the bfloat16 operands themselves) on A [rows, ka,
+// bs, bs] and B [nbk, kb, bs, bs]; float32 out, column norms [rows,
+// k_out, bs].
+int ntp_spgemm_uniform_tc(const void* a_cols, const void* a_hi,
+                          const void* a_lo, const void* b_hi,
+                          const void* b_lo, const void* wlo, void* out,
+                          void* norms, int rows, int ka, int kb, int nbk,
+                          int k_out, int span, int bs, int g_rows, int w,
+                          int positional, double alpha, double threshold,
+                          void* stream) {
+  const ntp::tc::Pairs<ntp::UniformIndex> src{
+      {static_cast<const int*>(a_cols), static_cast<const int*>(wlo), ka,
+       kb, nbk, span, g_rows, w, positional},
+      k_out};
+  const ntp::tc::Params p{static_cast<float*>(out),
+                          static_cast<float*>(norms),
+                          int64_t(rows) * k_out, bs, float(alpha),
+                          float(threshold)};
+  return ntp::tc::launch<ntp::tc::Pairs<ntp::UniformIndex>, true>(
+      a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo, int64_t(nbk) * kb, bs,
+      src, p, stream);
+}
+
+}  // extern "C"

@@ -7,48 +7,51 @@
 // panel rows starting at lo = min(wlo[group], NBK - W).  A col id is
 // addressed inside its group's window: B row = lo + clip(acol - lo, 0,
 // W - 1), so a col id outside the window reads the clamped edge row, as
-// on the TPU, and never out of bounds.  Three instances: float, double,
-// and bfloat16 operands with float output (the 'bf16' tier, which reads
-// half the operand bytes and accumulates in float).  Every other tier
-// runs exact products: 'high' on float is exact float here, where the
-// TPU splits it into three bf16 passes.
+// on the TPU, and never out of bounds.
 //
-// What bounds it on the H100: the block products on the FP32 (or FP64)
-// CUDA-core pipes.  At the 2^19-row low-K shape (bs 128, KA = KB = 3,
-// k_out 5) one X @ X is ~155 GFLOP against ~3 GB of operand and output
-// traffic, ~0.9 ms at 3.35 TB/s, far below the products' time.
+// Tiers, as _kernel_v3 computes them:
+//   'high' on float32: the TPU's hand-made bf16x3 split (:341-354),
+//       alpha (A_hi B_hi + A_lo B_hi + A_hi B_lo), on the tensor cores
+//       (tc.cuh): the split pass (spgemm_band.cu) writes the planes of A
+//       and of the panel, then wgmma fed by TMA.
+//   'bf16' (bfloat16 operands, float32 out): A B on the same product,
+//       the operands being the hi planes, with no split.
+//   'highest', 'default' (float32) and every tier of float64: exact FMA
+//       products on the two-stage cp.async ring of tile.cuh, products in
+//       turn (s, then t), k ascending, as the general and stream kernels
+//       add them.
+//
+// What bounds it on the H100 at the 2^19-row low-K shape (bs 128, KA =
+// KB = 3, k_out 5; one X @ X is ~155 GFLOP against ~2.1 GB of float32
+// operands and output): exact, the FP32 pipes (2.31 ms at 67 TFLOP/s);
+// 'high', its three bf16 products (0.47 ms at 989 TFLOP/s) under the
+// bytes (~0.64 ms at 3.35 TB/s), plus the split pass's own bytes.
 //
 // Design: the TPU keeps the group's whole window resident in VMEM; at bs
 // 128, KB 3 and W 10 that is 1.9 MB in float, and a block has 227 KB of
-// shared memory.  Of the ways to get the G rows' reuse of B back --
-// stage each k-chunk strip of a window row once for every product that
-// needs it (several output blocks per thread block: G blocks of 64 KB do
-// not fit the registers), share the window across a thread-block cluster
-// (the plan's rank form makes the cluster rank of an output column data
-// dependent), or schedule the group's blocks together so that L2 serves
-// the reuse -- this kernel takes the third.  One thread block per
-// (group, output slot j), on a 1-D grid in group order, walks the
-// group's G rows as the TPU's grid step does.  The k_out blocks of a
-// group run side by side and read the same A row and window rows at
-// about the same time; row i + 1 reads KA - 1 of row i's window rows
-// again shortly after.  At the low-K shape the ~264 resident blocks
-// cover ~53 groups, whose live rows (~0.8 MB a group) fit the 50 MB
-// L2, so a window row should come from HBM about once (L2 hit rate not
-// measured).  Within the block the two-stage
-// cp.async ring of tile.cuh keeps the next chunk, across row
-// boundaries too, in flight while the current one is multiplied.  No
-// atomics.  Later work: wgmma tiles fed by TMA.
+// shared memory.  Both tiers take the reuse of B from L2 instead.  The
+// ring: one thread block per (group, output slot j), on a 1-D grid in
+// group order, walks the group's G rows as the TPU's grid step does; the
+// k_out blocks of a group run side by side and read the same A row and
+// window rows at about the same time, and row i + 1 reads KA - 1 of row
+// i's window rows again shortly after.  The tensor cores: tc.cuh's
+// persistent grid over tiles (row r, slot j), slot-fastest, the pairs
+// (s, t) of row r whose plan entry is j, s ascending then t -- the
+// general kernel's pairs and order, so that on the same planes the two
+// give the same bits; a B box is block t of a window row of the panel,
+// at column t * bs.  No atomics.
+#include "tc.cuh"
 #include "tile.cuh"
 
 namespace ntp {
 
-// The work of (group, slot j): output o is row r0 + o of the group,
-// product slot p = s*KB + t.
-template <typename Tin, typename T>
+// The work of (group, slot j) on the ring: output o is row r0 + o of the
+// group, product slot p = s*KB + t.
+template <typename T>
 struct WindowWork {
   const int* a_cols;
-  const Tin* a_blocks;
-  const Tin* panel;
+  const T* a_blocks;
+  const T* panel;
   const int* plan;
   T* c_blocks;
   T* c_norms;
@@ -61,10 +64,10 @@ struct WindowWork {
   __device__ bool use(int o, int p) const {
     return acol(o, p) != kEmpty && plan[(r0 + o) * ka * kb + p] == j;
   }
-  __device__ const Tin* a(int o, int p) const {
+  __device__ const T* a(int o, int p) const {
     return a_blocks + ((r0 + o) * ka + p / kb) * int64_t(bs) * bs;
   }
-  __device__ const Tin* b(int o, int p) const {
+  __device__ const T* b(int o, int p) const {
     const int64_t row = lo + min(max(acol(o, p) - lo, 0), w - 1);
     return panel + row * bs * int64_t(kb) * bs + (p % kb) * bs;
   }
@@ -74,11 +77,11 @@ struct WindowWork {
   __device__ T* norm(int o) const { return c_norms + (r0 + o) * k_out + j; }
 };
 
-template <typename Tin, typename T, int TS>
+template <typename T, int TS>
 __global__ void __launch_bounds__(kThreads)
 window_kernel(const int* __restrict__ a_cols,
-              const Tin* __restrict__ a_blocks,
-              const Tin* __restrict__ panel, const int* __restrict__ plan,
+              const T* __restrict__ a_blocks,
+              const T* __restrict__ panel, const int* __restrict__ plan,
               const int* __restrict__ wlo, T* __restrict__ out,
               T* __restrict__ norms, int ka, int kb, int nbk, int k_out,
               int bs, int g_rows, int w, T alpha, T threshold) {
@@ -89,16 +92,40 @@ window_kernel(const int* __restrict__ a_cols,
   // wlo >= 0 from _v3_window; the clamp at 0 only keeps a bad caller's
   // reads in bounds
   const int lo = max(min(wlo[grp], nbk - w), 0);
-  const WindowWork<Tin, T> work{a_cols, a_blocks, panel, plan, out, norms,
-                                int64_t(grp) * g_rows, j, lo, ka, kb,
-                                k_out, bs, w};
-  pipelined_outputs<Tin, T, TS>(work, g_rows, ka * kb, bs, kb * bs, alpha,
-                                threshold,
-                                reinterpret_cast<Stage<Tin, TS>*>(smem),
-                                red);
+  const WindowWork<T> work{a_cols, a_blocks, panel, plan, out, norms,
+                           int64_t(grp) * g_rows, j, lo, ka, kb,
+                           k_out, bs, w};
+  pipelined_outputs<T, TS>(work, g_rows, ka * kb, bs, kb * bs, alpha,
+                           threshold, reinterpret_cast<Stage<T, TS>*>(smem),
+                           red);
 }
 
-template <typename Tin, typename T>
+// The tensor-core product's pairs, as an index of tile.cuh's pair
+// interface walked by tc::Pairs: output tile r * k_out + j takes the
+// candidates p = s * KB + t of row r with acol[r, s] != EMPTY and plan[r,
+// p] == j, in order (s ascending, then t), A block r * KA + s and block t
+// of the window row of acol[r, s]: panel row b_block, from column b_col.
+struct WindowIndex {
+  const int* a_cols;
+  const int* plan;
+  const int* wlo;
+  int ka, kb, nbk, bs, g_rows, w;
+
+  __device__ int slots() const { return ka * kb; }
+  __device__ int a_slot(int p) const { return p / kb; }
+  __device__ int b_col(int p) const { return (p % kb) * bs; }
+  __device__ int64_t b_block(int64_t r, int j, int p) const {
+    if (plan[r * ka * kb + p] != j) return -1;
+    const int ac = a_cols[r * ka + p / kb];
+    if (ac == kEmpty) return -1;
+    // wlo >= 0 from _v3_window; the clamp at 0 only keeps a bad caller's
+    // reads in bounds
+    const int lo = max(min(wlo[r / g_rows], nbk - w), 0);
+    return lo + min(max(ac - lo, 0), w - 1);
+  }
+};
+
+template <typename T>
 int launch_window(const void* a_cols, const void* a_blocks,
                   const void* panel, const void* plan, const void* wlo,
                   void* out, void* norms, int rows, int ka, int kb,
@@ -109,11 +136,11 @@ int launch_window(const void* a_cols, const void* a_blocks,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NTP_WINDOW(TS)                                                      \
   {                                                                         \
-    const int smem = ring_bytes<Tin, TS>();                                 \
-    if (int err = allow_smem(window_kernel<Tin, T, TS>, smem)) return err;  \
-    window_kernel<Tin, T, TS><<<blocks, kThreads, smem, st>>>(              \
-        static_cast<const int*>(a_cols), static_cast<const Tin*>(a_blocks), \
-        static_cast<const Tin*>(panel), static_cast<const int*>(plan),      \
+    const int smem = ring_bytes<T, TS>();                                   \
+    if (int err = allow_smem(window_kernel<T, TS>, smem)) return err;       \
+    window_kernel<T, TS><<<blocks, kThreads, smem, st>>>(                   \
+        static_cast<const int*>(a_cols), static_cast<const T*>(a_blocks),   \
+        static_cast<const T*>(panel), static_cast<const int*>(plan),        \
         static_cast<const int*>(wlo), static_cast<T*>(out),                 \
         static_cast<T*>(norms), ka, kb, nbk, k_out, bs, g_rows, w,          \
         T(alpha), T(threshold));                                            \
@@ -130,22 +157,42 @@ int launch_window(const void* a_cols, const void* a_blocks,
 
 }  // namespace ntp
 
-#define NTP_WINDOW_ENTRY(NAME, TIN, T)                                      \
+#define NTP_WINDOW_ENTRY(NAME, T)                                          \
   int NAME(const void* a_cols, const void* a_blocks, const void* panel,     \
            const void* plan, const void* wlo, void* out, void* norms,       \
            int rows, int ka, int kb, int nbk, int k_out, int bs,            \
            int g_rows, int w, double alpha, double threshold,               \
            void* stream) {                                                  \
-    return ntp::launch_window<TIN, T>(a_cols, a_blocks, panel, plan, wlo,   \
-                                      out, norms, rows, ka, kb, nbk, k_out, \
-                                      bs, g_rows, w, alpha, threshold,      \
-                                      stream);                              \
+    return ntp::launch_window<T>(a_cols, a_blocks, panel, plan, wlo, out,   \
+                                 norms, rows, ka, kb, nbk, k_out, bs,       \
+                                 g_rows, w, alpha, threshold, stream);      \
   }
 
 extern "C" {
-NTP_WINDOW_ENTRY(ntp_spgemm_window_f32, float, float)
-NTP_WINDOW_ENTRY(ntp_spgemm_window_f64, double, double)
-NTP_WINDOW_ENTRY(ntp_spgemm_window_bf16, __nv_bfloat16, float)
+NTP_WINDOW_ENTRY(ntp_spgemm_window_f32, float)
+NTP_WINDOW_ENTRY(ntp_spgemm_window_f64, double)
+
+// 'high' (a_lo and panel_lo given: the split planes of float32 operands)
+// or 'bf16' (both null: the bfloat16 operands themselves) on A [rows, ka,
+// bs, bs] and the panel [nbk, bs, kb * bs]; float32 out.
+int ntp_spgemm_window_tc(const void* a_cols, const void* a_hi,
+                         const void* a_lo, const void* panel_hi,
+                         const void* panel_lo, const void* plan,
+                         const void* wlo, void* out, void* norms, int rows,
+                         int ka, int kb, int nbk, int k_out, int bs,
+                         int g_rows, int w, double alpha, double threshold,
+                         void* stream) {
+  const ntp::tc::Pairs<ntp::WindowIndex> src{
+      {static_cast<const int*>(a_cols), static_cast<const int*>(plan),
+       static_cast<const int*>(wlo), ka, kb, nbk, bs, g_rows, w},
+      k_out};
+  const ntp::tc::Params p{static_cast<float*>(out),
+                          static_cast<float*>(norms),
+                          int64_t(rows) * k_out, bs, float(alpha),
+                          float(threshold)};
+  return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, panel_hi,
+                         panel_lo, nbk, kb * bs, src, p, stream);
+}
 }  // extern "C"
 
 #undef NTP_WINDOW_ENTRY

@@ -1,15 +1,17 @@
-// The tensor-core product of the band and general kernels
-// (spgemm_band.cu, spgemm_general.cu) at the 'high' and 'bf16' tiers of
-// float32 operands.
+// The tensor-core product of the block SpGEMM kernels at the 'high' and
+// 'bf16' tiers: band and general (spgemm_band.cu, spgemm_general.cu),
+// window (spgemm_window.cu) and uniform (spgemm_uniform.cu).
 //
-// It reads the bfloat16 planes that the split pass (spgemm_band.cu,
-// launched once per operand storage before the product) writes: hi =
-// bf16(x) and lo = bf16(x - hi), both rounded to nearest even, as the TPU
-// kernels split by hand; 'bf16' has hi only.  The product is a pure
-// bfloat16 GEMM over a list of block pairs, float32 sums:
+// It reads bfloat16 planes: those that the split pass (spgemm_band.cu,
+// launched once per operand storage before the product) writes from
+// float32 operands, hi = bf16(x) and lo = bf16(x - hi), both rounded to
+// nearest even, as the TPU kernels split by hand; or, at 'bf16', the
+// bfloat16 operands themselves, hi only.  The product is a pure bfloat16
+// GEMM over a list of block pairs, float32 sums:
 //   'high': C = alpha (A_hi B_hi + A_lo B_hi + A_hi B_lo)
 //   'bf16': C = alpha A_hi B_hi
-// then the prune epilogue (threshold flush, per-block L1 norm).
+// then the prune epilogue (threshold flush, the L1 norm of the block or,
+// for the uniform kernel, of each of its columns).
 //
 // Layout: one 128 x 128 output tile per output block (rows and columns at
 // or beyond bs are masked), a persistent grid of at most one thread block
@@ -21,12 +23,16 @@
 // of one pair: the A planes as 128 x 64 (K-major) and the B planes as 64 x
 // 128 (N-major, B's own row-major layout, so no transpose), all four
 // planes (64 KB) at 'high', so that a_hi and b_hi are read once for two of
-// the three terms.  The TMA maps are 3-D over each plane, (bs, bs,
-// blocks), with a 128-byte swizzle; a box reaching past bs reads zeros,
-// so bs 8-128 need no masking on the way in.  Only the producer reads
-// the pair indices: it flags the slot that ends a tile, so the
-// consumers never wait on an index load, and it runs ahead into the
-// next tile while the consumers store the last one.
+// the three terms.  The TMA maps are 3-D over each plane, (columns, bs
+// rows, blocks), with a 128-byte swizzle; a box reaching past a block's
+// rows or a plane's columns reads zeros, so bs 8-128 need no masking on
+// the way in.  A's planes are blocks (bs columns); B's are blocks or the
+// window kernel's panel rows (KB * bs columns, block t at column t * bs),
+// where a box wider than bs also reads the next block's columns: they
+// land only in output columns >= bs, which the epilogue masks.  Only the
+// producer reads the pair indices: it flags the slot that ends a tile,
+// so the consumers never wait on an index load, and it runs ahead into
+// the next tile while the consumers store the last one.
 //
 // Sums: the tensor cores add in float32 but truncate, which shrinks a
 // long chain of additions toward zero (a bias, not noise: at the 2^20-row
@@ -36,6 +42,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,15 +68,36 @@ struct Maps {
 
 struct Params {
   float* out;     // [tiles, bs, bs]
-  float* norms;   // [tiles]
+  float* norms;   // [tiles], or [tiles, bs] with column norms
   int64_t tiles;
   int bs;
   float alpha, threshold;
 };
 
 // ---------------------------------------------------------------------------
-// mbarriers, TMA, wgmma
+// the split, mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
+
+// hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even: the
+// TPU's bf16x3 split (a_hi b_hi + a_lo b_hi + a_hi b_lo), four values.
+__device__ __forceinline__ void split_bf16(float4 x, __nv_bfloat162 (&hi)[2],
+                                           __nv_bfloat162 (&lo)[2]) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  __nv_bfloat16 h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __float2bfloat16_rn(v[i]);
+    l[i] = __float2bfloat16_rn(v[i] - __bfloat162float(h[i]));
+  }
+  hi[0] = __halves2bfloat162(h[0], h[1]);
+  hi[1] = __halves2bfloat162(h[2], h[3]);
+  lo[0] = __halves2bfloat162(l[0], l[1]);
+  lo[1] = __halves2bfloat162(l[2], l[3]);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -208,7 +236,12 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a,
 // ---------------------------------------------------------------------------
 
 // The pairs of output tile r * k_out + g in the order of an Index
-// (tile.cuh's pair interface).
+// (tile.cuh's pair interface); a pair's B box starts at column
+// idx.b_col(p) of its B row (0 for block planes; t * bs in the window
+// kernel's panel rows).  Every kernel walks its pairs through this one
+// loop: on the H100 the window and uniform kernels' products ran slower
+// with loops of their own over the same pairs in the same order
+// (PERF.md).
 template <class Index>
 struct Pairs {
   Index idx;
@@ -222,7 +255,7 @@ struct Pairs {
       const int64_t b = idx.b_block(r, g, p);
       if (b >= 0)
         f(static_cast<int>(r * idx.ka + idx.a_slot(p)),
-          static_cast<int>(b));
+          static_cast<int>(b), idx.b_col(p));
     }
   }
 };
@@ -233,16 +266,21 @@ struct Pairs {
 // the consumers read no index of their own.
 constexpr int kData = 1, kLast = 2;
 
-// Src names the work (Pairs): for_each(tile, f) calls f(A block, B
-// block) for every pair of output tile `tile`, in order.
-template <class Src, bool kSplit>
+// Src names the work (Pairs over a kernel's index): for_each(tile, f)
+// calls f(A block, B block, B column) for every pair of output tile
+// `tile`, in order; the pair's B box starts at that column of the B
+// block's rows.  kColNorms: the epilogue writes the L1 norm of
+// each of the tile's bs columns, norms[tile * bs + c], instead of the
+// block's.
+template <class Src, bool kSplit, bool kColNorms>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 product_kernel(const __grid_constant__ Maps maps, const Src src,
                const Params p) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   __shared__ int info[kStages];
-  __shared__ float red[2][kConsumers / 32];
+  // per consumer warp: its block sum, or its sums of each column
+  __shared__ float red[2][kConsumers / 32][kColNorms ? kTile : 1];
   unsigned char* ring =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   if (threadIdx.x == 0) {
@@ -266,7 +304,7 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
     const CUtensorMap* b_lo = &maps.b_lo;
     int stage = 0, phase = 0;
     // the k steps of one pair, one slot each
-    auto issue = [&](int a_blk, int b_blk, bool last) {
+    auto issue = [&](int a_blk, int b_blk, int b_col, bool last) {
       for (int k = 0; k < k_steps; ++k) {
         mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = ring + stage * kStage;
@@ -275,14 +313,14 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
         mbar_expect(bar, (kSplit ? 4 : 2) * kPlane);
         const int k0 = k * kDepth;
         tma_load(st, a_hi, k0, 0, a_blk, bar);
-        tma_load(st + 2 * kPlane, b_hi, 0, k0, b_blk, bar);
-        tma_load(st + 2 * kPlane + kPlane / 2, b_hi, kTile / 2, k0, b_blk,
-                 bar);
+        tma_load(st + 2 * kPlane, b_hi, b_col, k0, b_blk, bar);
+        tma_load(st + 2 * kPlane + kPlane / 2, b_hi, b_col + kTile / 2, k0,
+                 b_blk, bar);
         if (kSplit) {
           tma_load(st + kPlane, a_lo, k0, 0, a_blk, bar);
-          tma_load(st + 3 * kPlane, b_lo, 0, k0, b_blk, bar);
-          tma_load(st + 3 * kPlane + kPlane / 2, b_lo, kTile / 2, k0, b_blk,
-                   bar);
+          tma_load(st + 3 * kPlane, b_lo, b_col, k0, b_blk, bar);
+          tma_load(st + 3 * kPlane + kPlane / 2, b_lo, b_col + kTile / 2,
+                   k0, b_blk, bar);
         }
         if (++stage == kStages) {
           stage = 0;
@@ -293,14 +331,15 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
     for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       // each pair is issued once the next is known, so that the last
       // one carries kLast
-      int a_prev = -1, b_prev = 0;
-      src.for_each(tile, [&](int a_blk, int b_blk) {
-        if (a_prev >= 0) issue(a_prev, b_prev, false);
+      int a_prev = -1, b_prev = 0, c_prev = 0;
+      src.for_each(tile, [&](int a_blk, int b_blk, int b_col) {
+        if (a_prev >= 0) issue(a_prev, b_prev, c_prev, false);
         a_prev = a_blk;
         b_prev = b_blk;
+        c_prev = b_col;
       });
       if (a_prev >= 0) {
-        issue(a_prev, b_prev, true);
+        issue(a_prev, b_prev, c_prev, true);
       } else {
         mbar_wait(&empty[stage], phase ^ 1);
         info[stage] = kLast;
@@ -365,7 +404,8 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
     const int row0 = 16 * warp + lane / 4, col0 = 2 * (lane % 4);
     float l1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 16; ++j) {
+      float n0 = 0.f, n1 = 0.f;  // |out| in columns col0 + 8 j (+ 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h, col = col0 + 8 * j;
@@ -376,17 +416,44 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
         if (row < bs && col < bs) {  // bs is even: col + 1 < bs too
           *reinterpret_cast<float2*>(out + row * bs + col) =
               make_float2(x0, x1);
-          l1 += fabsf(x0) + fabsf(x1);
+          if (kColNorms) {
+            n0 += fabsf(x0);
+            n1 += fabsf(x1);
+          } else {
+            l1 += fabsf(x0) + fabsf(x1);
+          }
         }
       }
+      if (kColNorms) {
+        // the 8 lanes of one lane % 4 hold the same columns
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    if (lane == 0) red[par][warp] = l1;
+        for (int off = 4; off < 32; off *= 2) {
+          n0 += __shfl_xor_sync(0xffffffffu, n0, off);
+          n1 += __shfl_xor_sync(0xffffffffu, n1, off);
+        }
+        if (lane < 4) {
+          red[par][warp][col0 + 8 * j] = n0;
+          red[par][warp][col0 + 8 * j + 1] = n1;
+        }
+      }
+    }
+    if (!kColNorms) {
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      if (lane == 0) red[par][warp][0] = l1;
+    }
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-    if (threadIdx.x == 0) {
+    const int c = threadIdx.x;
+    if (kColNorms) {
+      if (c < bs) {
+        float total = 0.f;
+        for (int w = 0; w < kConsumers / 32; ++w) total += red[par][w][c];
+        p.norms[tile * bs + c] = total;
+      }
+    } else if (c == 0) {
       float total = 0.f;
-      for (int w = 0; w < kConsumers / 32; ++w) total += red[par][w];
+      for (int w = 0; w < kConsumers / 32; ++w) total += red[par][w][0];
       p.norms[tile] = total;
     }
     par ^= 1;  // red[par] is read once more before it is written again
@@ -424,17 +491,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over n_blocks row-major bs x bs bfloat16 blocks, dims (column,
-// row, block), boxes of box_cols x box_rows x 1, 128-byte swizzle; what
-// lies past a block's edge reads as zero.  -> cudaError_t.
-inline int encode(CUtensorMap* map, const void* plane, int bs,
+// A map over n_blocks row-major blocks of bs rows of `cols` bfloat16
+// values, dims (column, row, block), boxes of box_cols x box_rows x 1,
+// 128-byte swizzle; what lies past a block's edge reads as zero.
+// -> cudaError_t.
+inline int encode(CUtensorMap* map, const void* plane, int cols, int bs,
                   int64_t n_blocks, int box_cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {cuuint64_t(bs), cuuint64_t(bs),
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(bs),
                               cuuint64_t(std::max<int64_t>(n_blocks, 1))};
-  const cuuint64_t strides[2] = {cuuint64_t(bs) * 2,
-                                 cuuint64_t(bs) * bs * 2};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
+                                 cuuint64_t(cols) * bs * 2};
   const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = fn(
@@ -452,10 +520,10 @@ inline int sm_count() {
   return n > 0 ? n : 1;
 }
 
-template <class Src, bool kSplit>
+template <class Src, bool kSplit, bool kColNorms>
 int launch_kernel(const Maps& maps, const Src& src, const Params& p,
                   cudaStream_t st) {
-  auto* kernel = product_kernel<Src, kSplit>;
+  auto* kernel = product_kernel<Src, kSplit, kColNorms>;
   if (int err = allow_smem(kernel, kSmem)) return err;
   const int grid =
       static_cast<int>(std::min<int64_t>(p.tiles, sm_count()));
@@ -463,32 +531,35 @@ int launch_kernel(const Maps& maps, const Src& src, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The product over the planes of A (n_a blocks) and B (n_b blocks): the
-// 'high' tier when a_lo is not null (then b_lo is not null either), else
+// The product over the planes of A (n_a blocks of bs x bs) and B (n_b
+// rows of bs x b_cols: bs for blocks, KB * bs for panel rows): the 'high'
+// tier when a_lo is not null (then b_lo is not null either), else
 // 'bf16'.  -> cudaError_t.
-template <class Src>
+template <class Src, bool kColNorms = false>
 int launch(const void* a_hi, const void* a_lo, int64_t n_a,
-           const void* b_hi, const void* b_lo, int64_t n_b, const Src& src,
-           const Params& p, void* stream) {
+           const void* b_hi, const void* b_lo, int64_t n_b, int b_cols,
+           const Src& src, const Params& p, void* stream) {
   if (p.tiles == 0) return 0;
   if (n_b == 0) {  // no pair reads B: any valid map will do
     b_hi = a_hi;
     b_lo = a_lo;
     n_b = n_a;
+    b_cols = p.bs;
   }
   const bool split = a_lo != nullptr;
+  const int bs = p.bs;
   Maps maps;
-  int err = encode(&maps.a_hi, a_hi, p.bs, n_a, kDepth, kTile);
-  if (!err) err = encode(&maps.b_hi, b_hi, p.bs, n_b, kTile / 2, kDepth);
+  int err = encode(&maps.a_hi, a_hi, bs, bs, n_a, kDepth, kTile);
+  if (!err) err = encode(&maps.b_hi, b_hi, b_cols, bs, n_b, kTile / 2, kDepth);
   if (!err)
-    err = encode(&maps.a_lo, split ? a_lo : a_hi, p.bs, n_a, kDepth, kTile);
+    err = encode(&maps.a_lo, split ? a_lo : a_hi, bs, bs, n_a, kDepth, kTile);
   if (!err)
-    err = encode(&maps.b_lo, split ? b_lo : b_hi, p.bs, n_b, kTile / 2,
+    err = encode(&maps.b_lo, split ? b_lo : b_hi, b_cols, bs, n_b, kTile / 2,
                  kDepth);
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return split ? launch_kernel<Src, true>(maps, src, p, st)
-               : launch_kernel<Src, false>(maps, src, p, st);
+  return split ? launch_kernel<Src, true, kColNorms>(maps, src, p, st)
+               : launch_kernel<Src, false, kColNorms>(maps, src, p, st);
 }
 
 }  // namespace tc

@@ -39,10 +39,12 @@ _SIGNATURES = {
     "ntp_spgemm_band_tc": ((_P,) * 9 + (_I,) * 7 + (_D, _D, _P), ("",)),
     "ntp_split_bf16": ((_P,) * 3 + (_L, _P), ("",)),
     "ntp_spgemm_stream": ((_P,) * 6 + (_I,) * 6 + (_D, _D, _P), _REAL),
-    "ntp_spgemm_window": ((_P,) * 7 + (_I,) * 8 + (_D, _D, _P),
-                          _REAL + ("_bf16",)),
-    "ntp_spgemm_uniform": ((_P,) * 6 + (_I,) * 11 + (_D, _D, _P),
-                           ("_f32", "_bf16")),
+    "ntp_spgemm_window": ((_P,) * 7 + (_I,) * 8 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_window_tc": ((_P,) * 9 + (_I,) * 8 + (_D, _D, _P), ("",)),
+    "ntp_spgemm_uniform": ((_P,) * 6 + (_I,) * 10 + (_D, _D, _P),
+                           ("_f32",)),
+    "ntp_spgemm_uniform_tc": ((_P,) * 8 + (_I,) * 10 + (_D, _D, _P),
+                              ("",)),
 }
 
 _lib = None

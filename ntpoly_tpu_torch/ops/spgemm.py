@@ -25,8 +25,10 @@ of B (``b_panel``); as in the reference, only the low-K profile
   * ``spgemm_stream``: one row at a time, the operand stream overlapped
     with the products;
   * ``spgemm_window``: a group of G rows at a time from one window of
-    KA + G - 1 panel rows (``_v3_pick``, ``_v3_window``), with the
-    precision tiers and a bfloat16 instance.
+    KA + G - 1 panel rows (``_v3_pick``, ``_v3_window``), at the
+    reference's tiers -- float32 'high' its bfloat16 hi/lo split on the
+    tensor cores after the split pass -- and at 'bf16' on bfloat16
+    operands.
 
 One more computes the *uniform-band* product of the JAX package's
 round-5 experiments (``profile_lowk_r5.py``: kernels v6, v7, v9, v10);
@@ -36,7 +38,10 @@ only the round-5 low-K profile (``profiling/lowk_r5.py``) calls it:
     slot s + t for B slot t), B rows addressed by col id or by position
     inside the group's window, per-column norms, and the TPU's three
     tiers -- 'high' as its bfloat16 hi/lo split (``split_bf16x3``) on
-    the tensor cores.
+    the tensor cores after the split pass.
+
+The tensor-core tiers of the band, general, window and uniform kernels
+share one product (``csrc/tc.cuh``).
 
 Each kernel has a plain PyTorch version beside it with the same inputs
 and outputs (``*_plain``).  The wrappers take the plain version only
@@ -405,9 +410,10 @@ def spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
                         threshold: float):
     """Plain version of the window kernel: the stream kernel's contract
     for groups of ``g_rows`` rows, each reading its B rows from its
-    window (``_window_rows``), products and sums in the output dtype
-    (:func:`_window_types`).  -> (blocks [R, k_out, bs, bs], norms
-    [R, k_out])."""
+    window (``_window_rows``), sums in the output dtype
+    (:func:`_window_types`), products at ``kernel_tier`` (float32 'high'
+    the bf16x3 split; bfloat16 operands exact in float32).  -> (blocks
+    [R, k_out, bs, bs], norms [R, k_out])."""
     out_dtype = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w,
                               precision)
     nbk = panel.shape[0]
@@ -417,7 +423,8 @@ def spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
                       _window_rows(a_cols[:, s], wlo, g_rows, w, nbk),
                       panel, t),
                   lambda s, t: plan[:, s * kb + t].long(), k_out, k_out,
-                  alpha, threshold, dtype=out_dtype)
+                  alpha, threshold, dtype=out_dtype,
+                  tier=kernel_tier(a_blocks.dtype, precision))
 
 
 # operand dtype -> output dtype of the uniform kernel, per tier
@@ -593,8 +600,7 @@ def _check_panel(a_cols, a_blocks, panel, kb, index):
     return out
 
 
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
-           torch.bfloat16: "_bf16"}
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
 def _launch(entry, key, args, ints, scalars=()):
@@ -631,11 +637,16 @@ def split_bf16(x: Tensor, *, lo: bool = True):
 
 
 def _planes(ab: Tensor, bb: Tensor, tier: str):
-    """The bfloat16 planes of A and B for a tensor-core tier, B's taken
-    from A's when both are one storage (X @ X splits X once)."""
+    """The bfloat16 planes of contiguous A and B for a tensor-core tier:
+    bfloat16 operands are their own hi planes; float32 ones go through
+    the split pass, B's planes taken from A's when B is the leading part
+    of A's storage (X @ X splits X once, also when A is X padded)."""
+    if ab.dtype == torch.bfloat16:
+        return (ab, None), (bb, None)
     pa = split_bf16(ab, lo=tier == "high")
-    if bb.data_ptr() == ab.data_ptr() and bb.shape == ab.shape:
-        return pa, pa
+    if bb.data_ptr() == ab.data_ptr() and bb.numel() <= ab.numel():
+        return pa, tuple(None if x is None else
+                         x.view(-1)[:bb.numel()].view(bb.shape) for x in pa)
     return pa, split_bf16(bb, lo=tier == "high")
 
 
@@ -742,14 +753,24 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     """Window kernel (``csrc/spgemm_window.cu``) on CUDA tensors, its
     plain version on CPU tensors.  R is a multiple of g_rows: callers
     pad col ids with EMPTY, the plan with k_out and blocks with zeros.
-    'highest', 'high' and 'default' run exact products; 'bf16' takes
-    bfloat16 operands and writes float32."""
+    Tiers as ``kernel_tier``: float32 'high' is the bf16x3 split (the
+    split pass on A and the panel, then the tensor cores); 'highest',
+    'default' and float64 run exact products; 'bf16' takes bfloat16
+    operands (the tensor cores, no split) and writes float32."""
     kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, precision=precision,
               alpha=alpha, threshold=threshold)
     if a_blocks.device.type == "cpu":
         return spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, **kw)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    return _run_window(a_cols, a_blocks, panel, plan, wlo, **kw)
+
+
+def _run_window(a_cols, a_blocks, panel, plan, wlo, *, kb, k_out, g_rows,
+                w, precision, alpha, threshold, planes=None):
+    """Check and launch the window kernel on CUDA tensors.  ``planes``:
+    the ``split_bf16`` planes of A and the panel, split already, for
+    timing the tensor-core product alone."""
     dt = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w, precision)
     ac, ab, bp, pl, wl = _check_panel(a_cols, a_blocks, panel, kb,
                                       {"plan": plan, "wlo": wlo})
@@ -757,10 +778,16 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     bs = ab.shape[-1]
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=ab.device)
     nrm = torch.empty((R, k_out), dtype=dt, device=ab.device)
-    _launch("ntp_spgemm_window" + _SUFFIX[ab.dtype], "spgemm_window",
-            (ac, ab, bp, pl, wl, out, nrm),
-            (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w),
-            (alpha, threshold))
+    ints = (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w)
+    tier = kernel_tier(ab.dtype, precision)
+    if ab.dtype == torch.bfloat16 or tier == "high":
+        (ah, al), (bh, bl) = planes or _planes(ab, bp, tier)
+        _launch("ntp_spgemm_window_tc", "spgemm_window",
+                (ac, ah, al, bh, bl, pl, wl, out, nrm), ints,
+                (alpha, threshold))
+    else:
+        _launch("ntp_spgemm_window" + _SUFFIX[ab.dtype], "spgemm_window",
+                (ac, ab, bp, pl, wl, out, nrm), ints, (alpha, threshold))
     return out, nrm
 
 
@@ -771,8 +798,9 @@ def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
     plain version on CPU tensors.  R is a multiple of g_rows: callers
     pad col ids with EMPTY and blocks with zeros.  'highest' runs exact
     products (float32 on the card, float32 or float64 on the CPU);
-    'high' (float32 operands) and 'bf16' (bfloat16 operands, float32
-    output) run on the tensor cores."""
+    'high' (float32 operands: the split pass, B's planes taken from A's
+    when B is the leading part of A's storage) and 'bf16' (bfloat16
+    operands, float32 output) run on the tensor cores."""
     kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, span=span,
               addressing=addressing, precision=precision, alpha=alpha,
               threshold=threshold)
@@ -780,6 +808,15 @@ def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
         return spgemm_uniform_plain(a_cols, a_blocks, b_blocks, wlo, **kw)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
+    return _run_uniform(a_cols, a_blocks, b_blocks, wlo, **kw)
+
+
+def _run_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb, k_out, g_rows, w,
+                 span, addressing, precision, alpha, threshold,
+                 planes=None):
+    """Check and launch the uniform kernel on CUDA tensors.  ``planes``:
+    the ``split_bf16`` planes of A and B, split already, for timing the
+    tensor-core product alone."""
     dt = _uniform_types(a_cols, a_blocks, b_blocks, wlo, kb=kb,
                         g_rows=g_rows, w=w, span=span,
                         addressing=addressing, precision=precision)
@@ -805,11 +842,16 @@ def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
         raise ValueError("A and B must start on 16 bytes")
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=dev)
     nrm = torch.empty((R, k_out, bs), dtype=dt, device=dev)
-    _launch("ntp_spgemm_uniform" + _SUFFIX[ab.dtype], "spgemm_uniform",
-            (ac, ab, bb, wl, out, nrm),
-            (R, KA, kb, bb.shape[0], k_out, span, bs, g_rows, w,
-             int(addressing == "position"), int(precision == "high")),
-            (alpha, threshold))
+    ints = (R, KA, kb, bb.shape[0], k_out, span, bs, g_rows, w,
+            int(addressing == "position"))
+    if precision == "highest":
+        _launch("ntp_spgemm_uniform_f32", "spgemm_uniform",
+                (ac, ab, bb, wl, out, nrm), ints, (alpha, threshold))
+    else:
+        (ah, al), (bh, bl) = planes or _planes(ab, bb, precision)
+        _launch("ntp_spgemm_uniform_tc", "spgemm_uniform",
+                (ac, ah, al, bh, bl, wl, out, nrm), ints,
+                (alpha, threshold))
     return out, nrm
 
 

@@ -19,11 +19,12 @@ warm-up:
   stream_same_bytes  an elementwise pass that reads and writes the
                      bytes the kernels must move (A, the panel, C)
 
-The window kernel runs 'highest' and 'high' as exact float32 products,
-one kernel instance timed twice; its 'bf16' arm reads bfloat16
-operands.  The band kernel runs the reference's tiers on float32 X:
-'highest' exact, 'high' the bf16x3 split and 'bf16' the hi part, the
-last two as the split pass plus the tensor-core product.
+The window and band kernels run the reference's tiers: 'highest'
+exact and, on float32 X, 'high' the bf16x3 split, as the split pass
+plus the tensor-core product (the window kernel splits A and the panel,
+two storages; the band kernel X once).  The band kernel's 'bf16' is the
+hi part of X's split; the window kernel's reads bfloat16 operands, the
+tensor cores taking them as they are.
 
 Two of the reference's arms are not carried over: the row-chunked v1
 and v2 variants (with ``_row_chunk``, and the single v1 call that

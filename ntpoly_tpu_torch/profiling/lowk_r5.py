@@ -83,8 +83,9 @@ def _pad(x: Tensor, g: int, fill) -> Tensor:
 
 def uniform_args(op: lowk.LowK) -> dict:
     """arm -> (positional, keyword arguments) of ``sp.spgemm_uniform``
-    (and of its plain version) for every uniform arm: A = B = X, B as
-    its raw blocks, A padded to whole groups (EMPTY, zero blocks).  The
+    (and of its plain version) for every uniform arm: A = B = X, A
+    padded to whole groups (EMPTY, zero blocks) and B its leading rows
+    as raw blocks, one storage, so that 'high' splits X once.  The
     'bf16' arms take one bfloat16 copy of X for both, as the others take
     X itself."""
     ka = op.cols.shape[1]
@@ -98,11 +99,11 @@ def uniform_args(op: lowk.LowK) -> dict:
             ac = _pad(op.cols, g, EMPTY)
             wlo = sp._v3_window(ac, g)[0]
             for tier in tiers:
-                x = x_of[tier]
+                xp = _pad(x_of[tier], g, 0)
                 name = (f"uniform_col_{tier}" if addressing == "col"
                         else f"uniform_pos_{tier}_g{g}")
                 out[name] = (
-                    (ac, _pad(x, g, 0), x, wlo),
+                    (ac, xp, xp[:op.cols.shape[0]], wlo),
                     dict(kb=ka, k_out=op.k_out, g_rows=g, w=ka + g - 1,
                          span=op.span, addressing=addressing, precision=tier,
                          alpha=1.0, threshold=op.threshold))

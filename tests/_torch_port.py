@@ -1,9 +1,16 @@
 """Shared helpers of the port's parity tests: one input, built with
 numpy from a seed, fed to both the JAX reference (``ntpoly_tpu``) and
-the PyTorch port (``ntpoly_tpu_torch``)."""
+the PyTorch port (``ntpoly_tpu_torch``).
+
+Importing it caps torch at one intra-op thread: the suite runs in
+several worker processes at once, and the port's small-op loops slowed
+about a hundredfold when each worker also ran torch's default thread
+pool on the same cores."""
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 EMPTY = 2**30
 

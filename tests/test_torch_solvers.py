@@ -30,6 +30,8 @@ from ntpoly_tpu_torch.solvers import parameters as PP
 from ntpoly_tpu_torch.systems import gapped_fn
 from ntpoly_tpu_torch.utils import logging as PL
 
+import _torch_port  # noqa: F401  (caps torch at one thread)
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import bench  # noqa: E402

@@ -16,6 +16,8 @@ from ntpoly_tpu_torch.parallel import pmatrix as PPM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
 from ntpoly_tpu_torch.profiling import trs4_tiers as T
 
+import _torch_port  # noqa: F401  (caps torch at one thread)
+
 DIM, BS, K_OUT = 2048, 16, 8
 
 
