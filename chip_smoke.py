@@ -15,10 +15,12 @@ Phases, one line each with its seconds:
    general kernels through the entry point at every tier ('highest',
    'high' and 'bf16' in f32, where 'high' must also lie nearer its
    bf16x3 plain version than the exact product; f64 exact at 'highest'
-   and 'high'), the split pass bit for bit, the stream and window
-   kernels through their wrappers (the window kernel at 'highest', at
-   'high' in f32, where it must also lie nearer its bf16x3 plain
-   version than the exact product, and with bf16 operands, and on the
+   and 'high'), f32 'default' (the TPU's one bf16 pass) bit for bit the
+   band and general kernels' 'bf16', the split pass bit for bit, the
+   stream and window kernels through their wrappers (the window kernel
+   at 'highest', at 'high' in f32, where it must also lie nearer its
+   bf16x3 plain version than the exact product, with bf16 operands,
+   and at 'default' in f32, bit for bit its 'bf16', and on the
    scattered case, whose col ids leave their group's window and are
    clamped), and the uniform kernel through its wrapper (both
    addressings, f32 at 'highest' and 'high', bf16; first groups at wlo
@@ -34,11 +36,14 @@ Phases, one line each with its seconds:
    wrapper's), the general kernel at the same product in rank form at
    'high' and at the parity shape (f64).
 5. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
-   full size, 2^19 rows of the chain at bs 128, every arm timed; then
-   on its operand every kernel arm (general, stream, window and band
-   at each tier) held against its plain version on the same inputs
-   ('high' also nearer it than the exact product), the general, stream
-   and window kernels against one another at 'highest', the window
+   full size, 2^19 rows of the chain at bs 128, every arm timed, and
+   torch.bmm in float32 over the same number of dense block products
+   as the FP32 yardstick of the exact arms; then on its operand every
+   kernel arm (general, stream, window and band at each tier) held
+   against its plain version on the same inputs ('high' also nearer it
+   than the exact product), the general, stream and window kernels
+   against one another at 'highest' (bit for bit: one exact core, one
+   order of FMAs), the window
    kernel's 'high' against the general kernel's on the same operand
    (and whether the two agree bit for bit), the `matmul` arm (band
    kernel at 'high') against the band kernel's plain version, and the
@@ -89,6 +94,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -336,11 +342,45 @@ def phase_kernels(errs):
                         errs, (name, (ac, ab), (bc, bb), k_out, alpha, thr),
                         dtype, bs):
                     used[kern] += 1
+                if dtype == torch.float32:
+                    for kern in default_case(
+                            f"bs={bs} {name}", (ac, ab), (bc, bb),
+                            dict(k_out=k_out, alpha=alpha, threshold=thr)):
+                        used[kern] += 1
     for bs in (8, 32, 128):
         used["spgemm_uniform"] += uniform_kernel_cases(errs, gen, bs)
     for k, n in used.items():
         if not n:
             raise AssertionError(f"no case launched {k}")
+
+
+def default_case(what, a, b, kw):
+    """float32 'default' is the TPU's one bf16 pass: through the entry
+    point on the card, the band (band_mode 'force') and general ('off')
+    kernels give the same bits at 'default' as at 'bf16' on the same
+    float32 operands (col ids, blocks, fill counts).  -> the kernels
+    launched."""
+    (ac, ab), (bc, bb) = ([x.cuda() for x in a], [x.cuda() for x in b])
+    used = []
+    for mode in ("force", "off"):
+        before = dict(sp.launches)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = sp.spgemm(ac, ab, bc, bb, precision="default",
+                            band_mode=mode, **kw)
+            want = sp.spgemm(ac, ab, bc, bb, precision="bf16",
+                             band_mode=mode, **kw)
+        torch.cuda.synchronize()
+        kern = [k for k in ("spgemm_band", "spgemm_general")
+                if sp.launches[k] > before[k]]
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        print(f"  float32 {what} {mode} default vs bf16 [{','.join(kern)}]: "
+              f"{'bit for bit' if same else 'MISMATCH'}")
+        if not same:
+            raise AssertionError(f"'default' differs from 'bf16' on {what} "
+                                 f"({mode})")
+        used += kern
+    return used
 
 
 def panel_kernel_cases(errs, case, dtype, bs):
@@ -349,8 +389,9 @@ def panel_kernel_cases(errs, case, dtype, bs):
     exactly, blocks to the output dtype's tolerance relative to max |C|.
     The window kernel runs at 'highest', and for f32 also at 'high'
     (the tolerance of a sum of three terms, and nearer the bf16x3 plain
-    version than the exact product) and at 'bf16' on the operands
-    rounded to bf16.  -> the kernels launched."""
+    version than the exact product), at 'bf16' on the operands rounded
+    to bf16, and at 'default' on the f32 operands, which must give the
+    'bf16' run's bits.  -> the kernels launched."""
     name, (ac, ab), (bc, bb), k_out, alpha, thr = case
     plan = sp.structure_plan(ac, bc, k_out)[0]
     panel = sp.b_panel(bc, bb)
@@ -365,16 +406,20 @@ def panel_kernel_cases(errs, case, dtype, bs):
     tiers = [("highest", ab, panel)]
     if dtype == torch.float32:
         tiers += [("high", ab, panel),
-                  ("bf16", ab.to(torch.bfloat16), panel.to(torch.bfloat16))]
+                  ("bf16", ab.to(torch.bfloat16), panel.to(torch.bfloat16)),
+                  ("default", ab, panel)]
     for prec, a_in, p_in in tiers:
         runs.append(("spgemm_window", prec, f" {prec}{clamp}",
                      (ac, a_in, p_in, plan, wlo),
                      lambda *x, precision: sp.spgemm_window(
                          *x, g_rows=g_rows, w=w, precision=precision,
                          **kw)))
+    window_out = {}
     for kern, prec, label, args, call in runs:
         before = sp.launches[kern]
         kb_, kn = call(*(x.cuda() for x in args), precision=prec)
+        if kern == "spgemm_window":
+            window_out[prec] = kb_, kn
         torch.cuda.synchronize()
         pb, pn = call(*args, precision=prec)
         if sp.launches[kern] != before + 1:
@@ -395,6 +440,15 @@ def panel_kernel_cases(errs, case, dtype, bs):
         if not ok:
             raise AssertionError(f"{kern}{label} on {name} bs={bs} "
                                  f"{dtype} disagrees with its plain version")
+    if "default" in window_out:
+        same = all(torch.equal(x, y) for x, y in zip(window_out["default"],
+                                                     window_out["bf16"]))
+        print(f"  {str(dtype)[6:]} bs={bs} {name} [spgemm_window]: 'default' "
+              f"on float32 vs 'bf16' on bfloat16: "
+              f"{'bit for bit' if same else 'MISMATCH'}")
+        if not same:
+            raise AssertionError(f"window 'default' differs from 'bf16' on "
+                                 f"{name} bs={bs}")
     return [r[0] for r in runs]
 
 
@@ -693,6 +747,20 @@ def phase_lowk(errs, times, op):
           f"{res['bytes'] / 1e9:.2f} GB least traffic, launches {counts}")
     for name, ms in res["ms"].items():
         print(f"  {name}: {ms:.3f} ms")
+    # the FP32 yardstick of the exact arms: cuBLAS on the same number of
+    # dense bs^3 products in float32 (TF32 off, config.py); printed, not
+    # the stream kernel's library_ms (it computes no pruned block-ELL
+    # product) and never called by the port
+    bs = op.h.bs
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((op.products(), bs, bs), device="cuda", generator=gen)
+    bmm_ms = lowk.cuda_time(lambda: torch.bmm(x, x), lowk.REPS)
+    del x
+    print(f"  yardstick: torch.bmm in float32 over the same {op.products()} "
+          f"products of {bs}^3: {bmm_ms:.3f} ms "
+          f"({op.flops() / bmm_ms / 1e9:.1f} TFLOP/s); stream kernel "
+          f"{res['ms']['stream']:.3f} ms "
+          f"({op.flops() / res['ms']['stream'] / 1e9:.1f} TFLOP/s)")
     rows, ka = op.cols.shape
     arms = lowk.arms(op)
     # the bound of a sum of depth = KA * bs products in float32 at each
@@ -736,7 +804,8 @@ def phase_lowk(errs, times, op):
         elif arm in rank_form:
             ferr = _errors(blk, first[1], op.threshold)[1]
             bits = torch.equal(blk, first[1]) and torch.equal(nrm, first[2])
-            ok = ok and ferr <= tol and torch.equal(nrm > 0, first[2] > 0)
+            # one exact core, one order of FMAs: the same bits
+            ok = ok and bits and ferr <= tol
             same = (f", vs {first[0]}: max rel err {ferr:.2e}, "
                     f"{'bit for bit' if bits else 'not bit for bit'}")
         errs[kern] = max(errs[kern], aerr)

@@ -16,9 +16,10 @@
 //       alpha (A_hi B_hi + A_lo B_hi + A_hi B_lo), on the tensor cores
 //       (tc.cuh): the split pass below writes the planes once per operand
 //       storage (X @ X splits X once), then wgmma fed by TMA.
-//   'bf16' on float32: A_hi B_hi, the same product without lo planes.
+//   'bf16' and 'default' on float32: A_hi B_hi, the same product without
+//       lo planes ('default' is the TPU's one bf16 pass).
 //   'highest' (and every tier of float64, which the reference keeps
-//       exact): exact FMA products on the two-stage cp.async ring of
+//       exact): exact FMA products on the three-stage cp.async ring of
 //       tile.cuh (pipelined_outputs), products in turn, k ascending, one
 //       fma per k, as the general, stream and window kernels add them.
 //

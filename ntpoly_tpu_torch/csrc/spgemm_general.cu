@@ -12,9 +12,10 @@
 //       tensor cores, through the band kernel's pieces: its split pass
 //       (spgemm_band.cu) writes the bfloat16 planes, and the product of
 //       tc.cuh walks the pairs whose plan entry names the tile.
-//   'bf16' on float32: the hi planes alone.
+//   'bf16' and 'default' on float32: the hi planes alone ('default' is
+//       the TPU's one bf16 pass).
 //   'highest' (and every tier of float64, which the reference keeps
-//       exact): exact FMA products on the two-stage cp.async ring of
+//       exact): exact FMA products on the three-stage cp.async ring of
 //       tile.cuh, products in turn (s, then t), k ascending, one fma per
 //       k, as the stream and window kernels add them, so the three agree
 //       bit for bit.

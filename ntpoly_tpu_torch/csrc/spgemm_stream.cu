@@ -11,19 +11,23 @@
 // (the TPU's HIGHEST).
 //
 // What bounds it on the H100: the bs x bs block products on the FP32
-// (or FP64) CUDA-core pipes, 64 operations per byte at bs = 128 in f32;
-// what the synchronous staging of the general kernel loses is the
-// latency of each chunk's loads, during which no product runs.
+// (or FP64) CUDA-core pipes, 64 operations per operand byte at bs 128 in
+// float32 (at the 2^19-row low-K X @ X, 154.6 GFLOP: 2.31 ms at 67
+// TFLOP/s, against ~0.6 ms of bytes).  So what counts is how many of the
+// SM's issue slots and shared-memory wavefronts go to anything but FMAs,
+// and how often operand latency is exposed at a barrier.
 //
 // Design: one thread block per block-row r walks the row's k_out output
 // slots in turn, as the TPU kernel walks one row per grid step; for each
 // slot it accumulates, in registers, every product whose plan entry
 // names it.  The TPU kernel double-buffers whole B panel rows with
-// make_async_copy and semaphores; here the unit is a k-chunk of A and of
-// the panel, and the buffer is a two-stage cp.async ring in shared
-// memory (tile.cuh: pipelined_outputs), so the next chunk -- including
-// the next slot's first chunk -- loads while the current one is
-// multiplied.  No atomics.  Later work: wgmma tiles fed by TMA.
+// make_async_copy and semaphores; here the unit is a 32-deep k-chunk of A
+// and of the panel, and the buffer is tile.cuh's three-stage cp.async
+// ring (pipelined_outputs), so the next two chunks -- including the next
+// slot's first ones -- load while the current one is multiplied, at one
+// barrier a chunk.  The multiply is tile.cuh's exact core: each thread an
+// 8 x 8 tile at bs 128, A and B read from shared memory as 16-byte
+// vectors, 4 loads per 64 FMAs.  No atomics.
 #include "tile.cuh"
 
 namespace ntp {
@@ -58,7 +62,7 @@ struct StreamWork {
 };
 
 template <typename T, int TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (Tile<T, TS>::kMinBlocks))
 stream_kernel(const int* __restrict__ a_cols, const T* __restrict__ a_blocks,
               const T* __restrict__ panel, const int* __restrict__ plan,
               T* __restrict__ out, T* __restrict__ norms, int ka, int kb,

@@ -26,7 +26,7 @@
 // neither schedule is carried over.
 //
 // Tiers (float32 operands, or bfloat16 at 'bf16'; float32 out):
-//   'highest': the exact FMA core of tile.cuh on the two-stage cp.async
+//   'highest': the exact FMA core of tile.cuh on the three-stage cp.async
 //       ring (pipelined_outputs), as the stream and window kernels run
 //       it; the TPU's HIGHEST is f32-accurate.  The plain version also
 //       takes double; no profile path needs it here.
@@ -126,7 +126,7 @@ struct UniformWork {
 // ---------------------------------------------------------------------------
 
 template <typename T, int TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (Tile<T, TS>::kMinBlocks))
 uniform_fma_kernel(const UniformArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T red[kThreads / 32 * TS];

@@ -16,10 +16,12 @@
 //       and of the panel, then wgmma fed by TMA.
 //   'bf16' (bfloat16 operands, float32 out): A B on the same product,
 //       the operands being the hi planes, with no split.
-//   'highest', 'default' (float32) and every tier of float64: exact FMA
-//       products on the two-stage cp.async ring of tile.cuh, products in
-//       turn (s, then t), k ascending, as the general and stream kernels
-//       add them.
+//   'default' on float32 (the TPU's one bf16 pass): the same product on
+//       the hi planes that the split pass writes, float32 out.
+//   'highest' on float32 and every tier of float64: exact FMA products
+//       on the three-stage cp.async ring of tile.cuh, products in turn
+//       (s, then t), k ascending, as the general and stream kernels add
+//       them.
 //
 // What bounds it on the H100 at the 2^19-row low-K shape (bs 128, KA =
 // KB = 3, k_out 5; one X @ X is ~155 GFLOP against ~2.1 GB of float32
@@ -78,7 +80,7 @@ struct WindowWork {
 };
 
 template <typename T, int TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (Tile<T, TS>::kMinBlocks))
 window_kernel(const int* __restrict__ a_cols,
               const T* __restrict__ a_blocks,
               const T* __restrict__ panel, const int* __restrict__ plan,

@@ -13,10 +13,10 @@ runs one of two:
     ``occ0 + t``), addressed arithmetically from ``band_plan``.
 
 Both run the reference's tiers (``kernel_tier``): float32 at 'high' is
-its bfloat16 hi/lo split (``split_bf16x3``) and at 'bf16' the hi part
-alone, on the tensor cores after the split pass (``split_bf16``) has
-written the planes; 'highest', 'default' and float64 at every tier are
-exact.
+its bfloat16 hi/lo split (``split_bf16x3``) and at 'bf16' and 'default'
+(the TPU's one bf16 pass) the hi part alone, on the tensor cores after
+the split pass (``split_bf16``) has written the planes; 'highest' and
+float64 at every tier are exact.
 
 Two more compute the general kernel's rank form from the panel layout
 of B (``b_panel``); as in the reference, only the low-K profile
@@ -245,16 +245,17 @@ def eligible(dtype, bs: int) -> bool:
 
 
 def kernel_tier(dtype, precision: str) -> str:
-    """The tier the band and general kernels run for blocks of ``dtype``
-    at ``precision``, as the reference's kernels do: float32 at 'high'
-    and 'bf16' runs that tier (the bfloat16 split, on the tensor cores);
-    everything else runs 'highest', exact products (the reference keeps
-    float64 exact at every tier; 'default', one bf16 pass on the TPU,
-    stays exact here)."""
+    """The tier the band, general and window kernels run for blocks of
+    ``dtype`` at ``precision``, as the reference's kernels do: float32
+    at 'high' runs the bfloat16 split and at 'bf16' its hi part, on the
+    tensor cores; float32 at 'default' runs 'bf16', the TPU's one bf16
+    pass (``jnp.dot`` at DEFAULT precision, spgemm_pallas.py:181-183);
+    'highest', and float64 at every tier, run exact products (the
+    reference keeps float64 exact)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
-    if dtype == torch.float32 and precision in ("high", "bf16"):
-        return precision
+    if dtype == torch.float32 and precision != "highest":
+        return "bf16" if precision == "default" else precision
     return "highest"
 
 
@@ -412,8 +413,9 @@ def spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     for groups of ``g_rows`` rows, each reading its B rows from its
     window (``_window_rows``), sums in the output dtype
     (:func:`_window_types`), products at ``kernel_tier`` (float32 'high'
-    the bf16x3 split; bfloat16 operands exact in float32).  -> (blocks
-    [R, k_out, bs, bs], norms [R, k_out])."""
+    the bf16x3 split, float32 'default' its hi part; bfloat16 operands
+    exact in float32).  -> (blocks [R, k_out, bs, bs], norms [R,
+    k_out])."""
     out_dtype = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w,
                               precision)
     nbk = panel.shape[0]
@@ -754,9 +756,10 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     plain version on CPU tensors.  R is a multiple of g_rows: callers
     pad col ids with EMPTY, the plan with k_out and blocks with zeros.
     Tiers as ``kernel_tier``: float32 'high' is the bf16x3 split (the
-    split pass on A and the panel, then the tensor cores); 'highest',
-    'default' and float64 run exact products; 'bf16' takes bfloat16
-    operands (the tensor cores, no split) and writes float32."""
+    split pass on A and the panel, then the tensor cores) and float32
+    'default' its hi part alone; 'highest' and float64 run exact
+    products; 'bf16' takes bfloat16 operands (the tensor cores, no
+    split) and writes float32."""
     kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, precision=precision,
               alpha=alpha, threshold=threshold)
     if a_blocks.device.type == "cpu":
@@ -780,7 +783,7 @@ def _run_window(a_cols, a_blocks, panel, plan, wlo, *, kb, k_out, g_rows,
     nrm = torch.empty((R, k_out), dtype=dt, device=ab.device)
     ints = (R, KA, kb, bp.shape[0], k_out, bs, g_rows, w)
     tier = kernel_tier(ab.dtype, precision)
-    if ab.dtype == torch.bfloat16 or tier == "high":
+    if ab.dtype == torch.bfloat16 or tier != "highest":
         (ah, al), (bh, bl) = planes or _planes(ab, bp, tier)
         _launch("ntp_spgemm_window_tc", "spgemm_window",
                 (ac, ah, al, bh, bl, pl, wl, out, nrm), ints,
@@ -880,10 +883,11 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
 
     precision: the kernels' tier (``kernel_tier``), as the reference's
     kernels run it: for float32 blocks 'high' is the bfloat16 hi/lo
-    split (three products, float32 sums) and 'bf16' the operands
-    rounded to bfloat16, both on the tensor cores; 'highest' and
-    'default' are exact, as is float64 at every tier.  alpha and
-    threshold are rounded to float32 first, as the reference does.
+    split (three products, float32 sums) and 'bf16' and 'default' the
+    operands rounded to bfloat16 ('default' is the TPU's one bf16 pass),
+    both on the tensor cores; 'highest' is exact, as is float64 at every
+    tier.  alpha and threshold are rounded to float32 first, as the
+    reference does.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")

@@ -71,6 +71,10 @@ class PSMatrix:
         return self.with_data(self.col_ids,
                               self.blocks.to(as_torch_dtype(dtype)))
 
+    def conjugate(self) -> "PSMatrix":
+        return self.with_data(self.col_ids,
+                              torch.conj_physical(self.blocks))
+
     @property
     def nnz(self) -> int:
         return int((self.blocks != 0).sum())
@@ -86,18 +90,19 @@ def geometry(dim: int, bs: int, grid: ProcessGrid):
     return nb, nb // grid.cols
 
 
-def empty(dim: int, *, bs: int, grid: ProcessGrid, dtype=None
-          ) -> PSMatrix:
-    """An all-zero matrix at capacity 1 (fills grow it to what the data
-    needs)."""
+def empty(dim: int, *, bs: int, grid: ProcessGrid, k: int | None = None,
+          dtype=None) -> PSMatrix:
+    """An all-zero matrix at capacity ``k`` (default 1, at most the
+    panel's block columns); fills grow it to what the data needs."""
     dtype = as_torch_dtype(dtype or default_real_dtype())
     if dtype.is_complex:
         raise TypeError("complex matrices are not ported yet (ROADMAP "
                         "Queue A item 9)")
-    nb, _ = geometry(dim, bs, grid)
-    col_ids = torch.full((grid.cols, nb, 1), EMPTY, dtype=torch.int32,
+    nb, pnb = geometry(dim, bs, grid)
+    k = min(k or 1, pnb)
+    col_ids = torch.full((grid.cols, nb, k), EMPTY, dtype=torch.int32,
                          device=grid.device)
-    blocks = torch.zeros((grid.cols, nb, 1, bs, bs), dtype=dtype,
+    blocks = torch.zeros((grid.cols, nb, k, bs, bs), dtype=dtype,
                          device=grid.device)
     return PSMatrix(col_ids, blocks, dim, bs, grid)
 
@@ -156,11 +161,13 @@ def fill_from_triplets(m: PSMatrix, rows, cols, vals) -> PSMatrix:
                        torch.from_numpy(out_blocks).to(dev))
 
 
-def fill_banded(m: PSMatrix, halfwidth: int, fn) -> PSMatrix:
+def fill_banded(m: PSMatrix, halfwidth: int, fn,
+                threshold: float = 0.0) -> PSMatrix:
     """Fill a banded matrix on the device: entry (i, j) = fn(i, j)
-    wherever |i - j| <= halfwidth, zero elsewhere.  ``fn`` is an
-    elementwise function of int32 index tensors (broadcast row indices i
-    and column indices j)."""
+    wherever |i - j| <= halfwidth and |fn(i, j)| > threshold, zero
+    elsewhere; the band's blocks keep their slots when the threshold
+    zeroes them.  ``fn`` is an elementwise function of int32 index
+    tensors (broadcast row indices i and column indices j)."""
     bs, nb, pnb = m.bs, m.nb, m.panel_nb
     bband = 0 if halfwidth < 1 else (halfwidth - 1) // bs + 1
     k = min(2 * bband + 1, pnb)
@@ -179,6 +186,8 @@ def fill_banded(m: PSMatrix, halfwidth: int, fn) -> PSMatrix:
     gj = (c[..., None, None] * bs
           + torch.arange(bs, **i32)[None, :])         # [Pc, NB, K, 1, bs]
     vals = fn(gi, gj)
+    if threshold > 0.0:
+        vals = torch.where(vals.abs() > threshold, vals, 0)
     mask = (((gi - gj).abs() <= halfwidth) & (gi < m.dim) & (gj < m.dim)
             & valid[..., None, None])
     blocks = torch.where(mask, vals.to(m.dtype), 0)
@@ -186,18 +195,20 @@ def fill_banded(m: PSMatrix, halfwidth: int, fn) -> PSMatrix:
 
 
 def banded(dim: int, halfwidth: int, fn, *, bs: int, grid: ProcessGrid,
-           dtype=None) -> PSMatrix:
+           dtype=None, threshold: float = 0.0) -> PSMatrix:
     """Convenience wrapper: empty + :func:`fill_banded`."""
     return fill_banded(empty(dim, bs=bs, dtype=dtype, grid=grid),
-                       halfwidth, fn)
+                       halfwidth, fn, threshold=threshold)
 
 
-def from_dense(dense, *, bs: int, grid: ProcessGrid, dtype=None
-               ) -> PSMatrix:
-    """Host-side dense -> PSMatrix (test/IO utility)."""
+def from_dense(dense, *, bs: int, grid: ProcessGrid, k: int | None = None,
+               dtype=None, threshold: float = 0.0) -> PSMatrix:
+    """Host-side dense -> PSMatrix (test/IO utility): the entries with
+    |x| > threshold, at capacity at least ``k``."""
     dense = np.asarray(dense)
-    i, j = np.nonzero(dense)
-    m = empty(dense.shape[0], bs=bs, dtype=dtype or dense.dtype, grid=grid)
+    i, j = np.nonzero(np.abs(dense) > threshold)
+    m = empty(dense.shape[0], bs=bs, k=k, dtype=dtype or dense.dtype,
+              grid=grid)
     return fill_from_triplets(m, i, j, dense[i, j])
 
 
