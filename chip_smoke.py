@@ -64,17 +64,37 @@ Phases, one line each with its seconds:
    and the tensor cores), with its certificates (idempotency,
    commutator, electron count) computed at 'highest'; then the same
    solve at 'highest' for the speed and accuracy trade.
+9. overlap: the non-orthogonal path (profiling/overlap.py) at the
+   flagship's width: the inverse square root of the overlap S of
+   `systems.overlap_fn` (Taylor order 5, 'highest'; max|ISQ S ISQ^T -
+   I| <= 1e-5), then TRS4, TRS2, PM and HPCP with it at 'highest'
+   (each within its iteration cap and the bars on the generalized
+   certificates ||KSK - K||/||K||, |tr(KS) - nel|/nel and ||HKS -
+   SKH||/||HKS||; the four energies within 1e-6 of one another), TRS4
+   once more at 'high' (idempotency and commutator bars), each timed
+   after a 2-iteration warm-up; then the ISQ, PM at 'highest' and TRS4
+   at 'high' once more at that width with every product of the band
+   and general kernels held against its plain version on the same card
+   tensors, once for each kernel, tier and shape (KA, KB, k_out) the
+   path gives them (blocks to the tier's tolerance at the depth KA * bs,
+   relative to max |C|; a block kept on one side only within rounding
+   of the threshold; at 'high' nearer the bf16x3 plain version than the
+   exact product), and the split pass bit for bit on each operand it
+   splits there; then S -> ISQ -> TRS4 and TRS2 at dim 4096, bs 32, f64
+   on the card against the CPU (energies to 1e-10, equal iteration
+   counts).
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
 general kernels in the card's TRS4 solves of phases 7 and 8 at the
-flagship's 'high' (the `kernels` line reports their sum), the split
-pass in that flagship solve, the stream and window kernels in the
-low-K profile of phase 5, the uniform kernel in the round-5 profile of
-phase 6.  The band, window and uniform kernels' entries time their
-tensor-core products alone at 'high' on planes split once beforehand
-(bit for bit their wrappers' output; `plain_ms` the whole multiply's
-plain version); the split pass has its own entry.  Each kernel's
+flagship's 'high' and in phase 9's ISQ and timed solves (the `kernels`
+line reports their sum), the split pass in those solves, the stream
+and window kernels in the low-K profile of phase 5, the uniform kernel
+in the round-5 profile of phase 6.  The band, window and uniform
+kernels' entries time their tensor-core products alone at 'high' on
+planes split once beforehand (bit for bit their wrappers' output;
+`plain_ms` the whole multiply's plain version); the split pass has its
+own entry.  Each kernel's
 `bound_ms` is the larger of its least bytes
 (each input read once, an operand passed as both A and B once, each
 output written once) over 3.35 TB/s and its operations over the peak
@@ -88,6 +108,7 @@ the result:
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -103,7 +124,7 @@ from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import lowk, lowk_r5, trs4_tiers
+from ntpoly_tpu_torch.profiling import lowk, lowk_r5, overlap, trs4_tiers
 from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
                                                    purity_invariants, solve)
 from ntpoly_tpu_torch.solvers import density
@@ -133,6 +154,9 @@ KERNELS = {
                  "ntpoly_tpu/ops/spgemm_pallas.py:169"),
 }
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the overlap phase's iteration caps: ~40% over the counts that the
+# CPU runs of the same path predicted (PERF.md, section 6)
+OVERLAP_CAPS = {"trs4": 10, "trs2": 18, "pm": 10, "hpcp": 10}
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "fp64_tensor": 67e12, "bf16_tensor": 989e12}
@@ -1059,6 +1083,243 @@ def phase_flagship():
     return result["high"][1]
 
 
+def _certified(what: str, res: dict, nel: float, trace: bool = True):
+    """Raise unless a solve's generalized certificates meet the
+    flagship's bars (the trace bar only when ``trace``)."""
+    ok = (res["idempotency_rel"] <= 1e-5 and res["commutator_rel"] <= 5e-5
+          and (not trace or res["trace_abs_err"] / nel <= 1e-6)
+          and math.isfinite(res["energy"]) and math.isfinite(res["mu"]))
+    if not ok:
+        raise AssertionError(f"{what}: certificates out of bounds")
+
+
+def _overlap_line(name: str, r: dict, nel: float) -> str:
+    return (f"  {name}: {r['iterations']} iterations, {r['seconds']:.3f} s "
+            f"wall, {r['seconds_per_iteration']:.4f} s per iteration, "
+            f"energy {r['energy']!r}, mu {r['mu']!r}, k {r['k']}, peak "
+            f"memory {r['peak_gib']:.2f} GiB, launches {r['launches']}; "
+            f"certificates (at 'highest'): idempotency "
+            f"{r['idempotency_rel']!r}, trace error per electron "
+            f"{r['trace_err'] / nel!r}, commutator {r['commutator_rel']!r}")
+
+
+# the plain version of each wrapper that ``sp.spgemm`` dispatches to
+PLAINS = {"spgemm_band": sp.spgemm_band_plain,
+          "spgemm_general": sp.spgemm_general_plain}
+# block rows of A per plain-version call when a path's product is held
+HOLD_ROWS = 1024
+
+
+def _hold_product(name, args, kw, out, errs) -> str:
+    """A kernel's output ``out`` on the path's card tensors ``args`` (A,
+    B and the band or general index) against its plain version on the
+    same tensors, HOLD_ROWS block rows of A at a time: blocks to
+    ``entry_tol`` at the depth KA * bs, relative to max |C|; a block
+    kept on one side only must lie within rounding of the threshold;
+    at 'high', nearer the bf16x3 plain version than the exact product.
+    -> the product's line."""
+    kb, kn = out
+    ac, ab, bc, bb, ix = args
+    prec, thr = kw["precision"], kw["threshold"]
+    R, KA = ac.shape
+    bs = ab.shape[-1]
+    tol = entry_tol(prec, kb.dtype, KA * bs)
+    diff = {"tier": 0.0, "exact": 0.0}
+    top, odd, ok = 0.0, 0, True
+    for r0 in range(0, R, HOLD_ROWS):
+        rs = slice(r0, min(r0 + HOLD_ROWS, R))
+        part = (ac[rs], ab[rs], bc, bb, ix[rs])
+        pb, pn = PLAINS[name](*part, **kw)
+        diff["tier"] = max(diff["tier"], _errors(kb[rs], pb, thr)[0])
+        top = max(top, float(pb.abs().max()))
+        one_side = (kn[rs] > 0) != (pn > 0)
+        odd += int(one_side.sum())
+        kept = torch.maximum(kb[rs].abs().amax((-1, -2)),
+                             pb.abs().amax((-1, -2)))[one_side]
+        ok = ok and bool((kept <= thr * (1 + 1e-4)).all())
+        del pb, pn
+        if prec == "high":
+            eb, _ = PLAINS[name](*part, **{**kw, "precision": "highest"})
+            diff["exact"] = max(diff["exact"], _errors(kb[rs], eb, thr)[0])
+            del eb
+    err = diff["tier"] / max(top, 1e-300)
+    ok = ok and err <= tol
+    exact = ""
+    if prec == "high":
+        ex_err = diff["exact"] / max(top, 1e-300)
+        ok = ok and (err < ex_err or err == 0.0)
+        exact = f", vs exact {ex_err:.2e}"
+    what = (f"{name} {prec} R={R} KA={KA} KB={bc.shape[1]} "
+            f"k_out={kw['k_out']} bs={bs} {str(kb.dtype)[6:]}")
+    if not ok:
+        raise AssertionError(f"{what} on the overlap path: error "
+                             f"{err:.2e} > {tol:.2e}{exact}, or one of "
+                             f"{odd} blocks kept on one side only lies "
+                             "above the threshold")
+    errs[name] = max(errs[name], diff["tier"])
+    return (f"{what}: max rel err {err:.2e} (tolerance {tol:.1e}){exact}, "
+            f"{odd} blocks kept on one side only")
+
+
+def _hold_split(x, lo, out) -> str:
+    """The split pass's planes ``out`` of the path's operand ``x`` against
+    its plain version on the same card tensor, bit for bit."""
+    want = sp.split_bf16x3(x) if lo else (x.to(torch.bfloat16), None)
+    same = all(g is None or torch.equal(g.view(torch.int16),
+                                        w.view(torch.int16))
+               for g, w in zip(out, want))
+    what = f"split_bf16 {'hi and lo' if lo else 'hi'} {list(x.shape)}"
+    if not same:
+        raise AssertionError(f"{what} on the overlap path disagrees with "
+                             "its plain version")
+    return f"{what}: bit for bit"
+
+
+@contextlib.contextmanager
+def _held_on_path(errs, held: dict):
+    """While open, each product of the band and general kernels that
+    ``sp.spgemm`` launches, and each split pass, is held against its
+    plain version on the same card tensors, once for each (kernel,
+    tier, KA, KB, k_out) or split shape; ``held`` maps each to its
+    line."""
+    wrappers = {name: getattr(sp, name) for name in (*PLAINS, "split_bf16")}
+
+    def product(name):
+        def call(*args, **kw):
+            out = wrappers[name](*args, **kw)
+            key = (name, kw["precision"], args[0].shape[1],
+                   args[2].shape[1], kw["k_out"])
+            if key not in held:
+                held[key] = _hold_product(name, args, kw, out, errs)
+            return out
+        return call
+
+    def split(x, *, lo=True):
+        out = wrappers["split_bf16"](x, lo=lo)
+        key = ("split_bf16", lo, tuple(x.shape))
+        if key not in held:
+            held[key] = _hold_split(x, lo, out)
+        return out
+
+    for name in PLAINS:
+        setattr(sp, name, product(name))
+    sp.split_bf16 = split
+    try:
+        yield
+    finally:
+        for name, fn in wrappers.items():
+            setattr(sp, name, fn)
+
+
+def overlap_products(errs):
+    """The band and general kernels and the split pass held against their
+    plain versions at the shapes that the overlap path gives them: the
+    ISQ (at 'highest'), PM at 'highest' and TRS4 at 'high' run once more
+    at the flagship's width inside ``_held_on_path``.  Their launches
+    are not counted."""
+    config = trs4_tiers.CONFIGS["flagship"]
+    h, s, nel = overlap.system(config["dim"], config["bs"], "cuda")
+    held = {}
+    with _held_on_path(errs, held):
+        isq_m, _, _ = overlap.isq(s)
+        del s
+        for name, precision in (("pm", "highest"), ("trs4", "high")):
+            overlap.solve(name, h, isq_m, nel,
+                          overlap.solve_params(precision))
+    torch.cuda.synchronize()
+    for line in held.values():
+        print(f"  held on the path: {line}")
+    kinds = {key[:2] for key in held}
+    if not {("spgemm_band", "highest"), ("spgemm_general", "highest"),
+            ("spgemm_band", "high"), ("split_bf16", True)} <= kinds:
+        raise AssertionError("the overlap path's products held did not "
+                             "cover the band and general kernels at "
+                             "'highest' and the band kernel with its "
+                             "split at 'high'")
+
+
+def overlap_parity():
+    """S -> ISQ -> TRS4 and TRS2 at dim 4096, bs 32, f64: the kernels on
+    the card against the plain versions on the CPU.  -> the card's
+    launch counts."""
+    dim, bs = 4096, 32
+    results = {}
+    for dev in ("cpu", "cuda"):
+        h, s, nel = overlap.system(dim, bs, dev, torch.float64)
+        t0 = time.perf_counter()
+        isq, n_isq, counts = overlap.isq(s)
+        out = {"isq": n_isq}
+        for name in ("trs4", "trs2"):
+            _, energy, _, n, c = overlap.solve(name, h, isq, nel)
+            out[name] = (energy, n)
+            counts = {k: counts[k] + c[k] for k in counts}
+        secs = time.perf_counter() - t0
+        results[dev] = (out, counts)
+        print(f"  parity {dev}: ISQ {n_isq} iterations, " + ", ".join(
+            f"{name} {n} iterations energy {e!r}"
+            for name, (e, n) in ((k, out[k]) for k in ("trs4", "trs2")))
+            + f", {secs:.2f} s, launches {counts}")
+    (cpu, c0), (card, c1) = results["cpu"], results["cuda"]
+    rel = max(abs(card[k][0] - cpu[k][0]) / abs(cpu[k][0])
+              for k in ("trs4", "trs2"))
+    print(f"  parity: energies' largest rel diff {rel:.2e}")
+    if (rel > 1e-10 or cpu["isq"] != card["isq"]
+            or any(cpu[k][1] != card[k][1] for k in ("trs4", "trs2"))):
+        raise AssertionError("card and CPU disagree on the overlap path")
+    if any(c0.values()) or not (c1["spgemm_general"] or c1["spgemm_band"]):
+        raise AssertionError("the CPU path launched a kernel, or the card "
+                             "path launched neither the band nor the "
+                             "general kernel")
+    return c1
+
+
+def phase_overlap(errs):
+    """The non-orthogonal path at the flagship's width
+    (``profiling/overlap.py``): the overlap's inverse square root, then
+    TRS4, TRS2, PM and HPCP with it at 'highest', each within the bars
+    on the generalized certificates and their energies within 1e-6 of
+    one another; TRS4 once more at 'high' (idempotency and commutator
+    bars); then its kernels against their plain versions at the path's
+    shapes (``overlap_products``, into ``errs``); then S -> ISQ -> TRS4,
+    TRS2 on the card against the CPU in f64.  -> the launch counts of
+    the ISQ and the timed solves."""
+    config = trs4_tiers.CONFIGS["flagship"]
+    nel = config["dim"] / 2
+    res = overlap.run(config["dim"], config["bs"], "cuda")
+    r = res["isq"]
+    print(f"  ISQ: {r['iterations']} iterations, {r['seconds']:.3f} s, "
+          f"k {r['k']}, max|ISQ S ISQ^T - I| {r['residual']!r} (at "
+          f"'highest'), launches {r['launches']}")
+    if not r["residual"] <= 1e-5:
+        raise AssertionError("the overlap's inverse square root misses "
+                             "its residual bar")
+    counts = dict(r["launches"])
+    energies = []
+    for name in overlap.SOLVERS + ("trs4_high",):
+        r = res[name]
+        print(_overlap_line(name, r, nel))
+        counts = {k: counts[k] + r["launches"][k] for k in counts}
+        if name == "trs4_high":
+            _certified(name, r, nel, trace=False)
+            continue
+        _certified(name, r, nel)
+        if r["iterations"] > OVERLAP_CAPS[name]:
+            raise AssertionError(f"{name} took {r['iterations']} "
+                                 f"iterations, over its cap")
+        energies.append(r["energy"])
+    spread = (max(energies) - min(energies)) / abs(min(energies))
+    print(f"  energies' spread {spread:.2e} (relative)")
+    if spread > 1e-6:
+        raise AssertionError("the four solvers' energies disagree")
+    if not (counts["spgemm_band"] or counts["spgemm_general"]):
+        raise AssertionError("the overlap path launched neither the band "
+                             "nor the general kernel")
+    overlap_products(errs)
+    parity = overlap_parity()
+    print(f"  launches on the path: {counts}; parity path {parity}")
+    return counts
+
+
 def main() -> int:
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -1082,14 +1343,14 @@ def main() -> int:
     del op
     parity = run("parity", phase_parity)
     flagship = run("flagship", phase_flagship)
-    counts = {k: parity[k] + flagship[k] for k in ("spgemm_band",
-                                                   "spgemm_general",
-                                                   "split_bf16")}
+    non_orth = run("overlap", phase_overlap, errs)
+    counts = {k: parity[k] + flagship[k] + non_orth[k]
+              for k in ("spgemm_band", "spgemm_general", "split_bf16")}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "
-          f"{parity}, flagship solve {flagship}, low-K profile {low}, "
-          f"round-5 low-K profile {low_r5})")
+          f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
+          f"low-K profile {low}, round-5 low-K profile {low_r5})")
     for name, n in counts.items():
         if not n:
             raise AssertionError(f"{name} never launched on its path")

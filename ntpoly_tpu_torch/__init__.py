@@ -6,9 +6,13 @@ Hopper (``csrc/``).  The JAX package ``ntpoly_tpu`` is the reference:
 storage, slot order, holes and capacities match it exactly, and the
 tests hold each module of this package against its counterpart there.
 
-This slice covers the TRS4 purification on one device (see
-``solvers/density.py``).  Tensors on a CUDA device go through the
-kernels; tensors on the CPU go through their plain PyTorch versions.
+The port covers, on one device, the density-matrix purifications
+(PM, TRS2, TRS4, HPCP and scale-and-fold, ``solvers/density.py``) in
+an orthogonal or a non-orthogonal basis, the latter through the
+overlap's inverse square root (``solvers/squareroot.py``), with
+optional load-balance permutations (``utils/permutation.py``).
+Tensors on a CUDA device go through the kernels; tensors on the CPU go
+through their plain PyTorch versions.
 """
 from . import config  # noqa: F401
 from .utils.errors import NTPolyError  # noqa: F401

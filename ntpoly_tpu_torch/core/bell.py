@@ -285,3 +285,79 @@ def col_abs_sums(cols: Tensor, blocks: Tensor, nbc: int) -> Tensor:
     r, k = torch.nonzero(valid, as_tuple=True)
     out.index_add_(0, cols[r, k].long(), persl[r, k])
     return out
+
+
+def filter_small(cols: Tensor, blocks: Tensor, threshold,
+                 k_out: int | None = None) -> Tuple[Tensor, Tensor]:
+    """Drop |v| <= threshold and re-pack (:func:`compact` at the same
+    capacity unless ``k_out`` is given)."""
+    k_out = cols.shape[-1] if k_out is None else k_out
+    return compact(cols, blocks, k_out, threshold)
+
+
+def grand_sum(blocks: Tensor) -> Tensor:
+    """Sum of every stored value."""
+    return blocks.sum()
+
+
+# ----------------------------------------------------------------------------
+# block-COO <-> block-ELL (transpose machinery)
+# ----------------------------------------------------------------------------
+
+def to_block_coo(cols: Tensor, blocks: Tensor, row_offset: int = 0):
+    """Flatten [R, K] slots to block-COO (rows, cols, blocks, valid),
+    every slot listed, EMPTY ones with valid False."""
+    R, K = cols.shape
+    bs = blocks.shape[-1]
+    rows = (torch.arange(R, dtype=torch.int32, device=cols.device)
+            + row_offset)[:, None].expand(R, K)
+    return (rows.reshape(-1), cols.reshape(-1),
+            blocks.reshape(R * K, bs, bs), (cols != EMPTY).reshape(-1))
+
+
+def from_block_coo(rows: Tensor, cols: Tensor, blocks: Tensor,
+                   valid: Tensor, *, nbr: int, k: int, panels: int = 1,
+                   panel_nbc: int | None = None) -> Tuple[Tensor, Tensor]:
+    """Build block-ELL [panels, nbr, k] from flat block-COO.
+
+    (row, col) must be unique among the valid entries.  Each row's
+    blocks pack from slot 0 in ascending col order; a row with more
+    than ``k`` keeps its ``k`` lowest col ids, and invalid entries are
+    dropped (their row becomes ``nbr``, outside the matrix).  With
+    ``panels > 1`` the output is split by column panel
+    ``col // panel_nbc``."""
+    bs = blocks.shape[-1]
+    dev = rows.device
+    rows = torch.where(valid, rows, nbr)
+    if panels > 1:
+        if panel_nbc is None:
+            raise ValueError("panels > 1 needs panel_nbc")
+        p = torch.where(valid, cols // panel_nbc, 0)
+    else:
+        p = torch.zeros_like(rows)
+    # lexicographic (panel, row, col) by two stable sorts
+    colkey = torch.where(valid, cols, EMPTY)
+    order1 = torch.argsort(colkey, stable=True)
+    grp = p * (nbr + 1) + rows
+    order = order1[torch.argsort(grp[order1], stable=True)]
+    sp, sr, sc, sv = p[order], rows[order], cols[order], valid[order]
+    grp = grp[order]
+    n = grp.shape[0]
+    idx = torch.arange(n, device=dev)
+    row_first = torch.ones(n, dtype=torch.bool, device=dev)
+    row_first[1:] = grp[1:] != grp[:-1]
+    start = torch.cummax(torch.where(row_first, idx, 0), dim=0).values
+    slot = idx - start
+    keep = sv & (slot < k) & (sr < nbr)
+    out_cols = torch.full((panels, nbr, k), EMPTY, dtype=torch.int32,
+                          device=dev)
+    out_blocks = blocks.new_zeros((panels, nbr, k, bs, bs))
+    at = (sp[keep].long(), sr[keep].long(), slot[keep])
+    out_cols[at] = sc[keep].to(torch.int32)
+    out_blocks[at] = blocks[order[keep]]
+    return out_cols, out_blocks
+
+
+def transpose_blocks(blocks: Tensor) -> Tensor:
+    """Transpose within each block (no conjugation)."""
+    return blocks.transpose(-1, -2)

@@ -350,3 +350,74 @@ def is_identity(a: PSMatrix) -> bool:
     want = torch.where((a.col_ids == rows)[..., None, None] & (gi < a.dim),
                        eye, 0)
     return float((a.blocks - want).abs().sum()) == 0.0
+
+
+# ----------------------------------------------------------------------------
+# transpose, norm and the two-sided products
+# ----------------------------------------------------------------------------
+
+def filter_small(a: PSMatrix, threshold) -> PSMatrix:
+    """Drop |v| <= threshold, re-packed at the same capacity."""
+    cc, cb = bell.filter_small(a.col_ids, a.blocks, threshold)
+    return a.with_data(cc, cb)
+
+
+def _transpose(a: PSMatrix, k_out: int):
+    """A^T at capacity k_out (overflowing rows keep their lowest col
+    ids), and the largest fill of any output row as a device scalar."""
+    pc, nb, k = a.col_ids.shape
+    rows, cols, blocks, valid = bell.to_block_coo(
+        a.col_ids.reshape(pc * nb, k),
+        bell.transpose_blocks(a.blocks).reshape(pc * nb, k, a.bs, a.bs))
+    rows = rows % nb                 # every panel lists the same nb rows
+    # output fill per (panel of the old row, new row = old col)
+    pidx = (rows // a.panel_nb).long()
+    counts = torch.zeros((pc, nb + 1), dtype=torch.int32, device=a.device)
+    counts.index_put_((pidx, torch.where(valid, cols, nb).long()),
+                      torch.ones_like(rows), accumulate=True)
+    fill = counts[:, :nb].amax()
+    oc, ob = bell.from_block_coo(
+        torch.where(valid, cols, nb), rows, blocks, valid, nbr=nb,
+        k=k_out, panels=pc, panel_nbc=a.panel_nb)
+    return a.with_data(oc, ob), fill
+
+
+def transpose(a: PSMatrix, k_out: int | None = None,
+              on_overflow: str | None = None) -> PSMatrix:
+    """A^T by a block-COO flip and rebuild; a row of A^T can need more
+    slots than A has, and 'grow' (the default) re-runs at the fill it
+    needs.  Other policies keep the capacity, and overflowing rows keep
+    their lowest col ids."""
+    cap = a.panel_nb
+    k = min(k_out or _policy_get("k_out") or a.k, cap)
+    on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
+    while True:
+        out, fill = _transpose(a, k)
+        if on_overflow != "grow" or k >= cap:
+            return out
+        need = int(fill)
+        if need <= k:
+            return out
+        k = _k_bucket(need, cap)
+
+
+def norm(a: PSMatrix) -> torch.Tensor:
+    """The max column 1-norm (0-d tensor on the device)."""
+    return column_sums(a).amax()
+
+
+def similarity_transform(a: PSMatrix, p: PSMatrix, pinv: PSMatrix,
+                         threshold=0.0, k_out=None) -> PSMatrix:
+    """P @ A @ Pinv.  When P and Pinv are both the identity the
+    multiplies are skipped: A itself, filtered when threshold > 0."""
+    if p.k <= 1 and pinv.k <= 1 and is_identity(p) and is_identity(pinv):
+        return filter_small(a, threshold) if threshold > 0 else a
+    tmp = matmul(a, pinv, threshold=threshold, k_out=k_out)
+    return matmul(p, tmp, threshold=threshold, k_out=k_out)
+
+
+def load_balance(a: PSMatrix, perm: PSMatrix, perm_t: PSMatrix,
+                 threshold=0.0) -> PSMatrix:
+    """P A P^T by two multiplies, for permutation matrices P and P^T."""
+    return matmul(perm, matmul(a, perm_t, threshold=threshold),
+                  threshold=threshold)

@@ -87,47 +87,74 @@ def flagship_params(k_out: int, method: str, precision: str = "high",
     return params
 
 
-def solve(h, isq, nel, params):
-    """density.trs4 -> (rho, energy, mu, iterations, launches).  The
-    iteration count is read from the solver's log, as the JAX package's
-    bench.py reads it; the kernel launch counts are reset just before
-    the solve and read just after it."""
-    params = params.copy()
+def logged(fn, *args):
+    """fn(*args) with the YAML logger on and the kernel launch counts
+    reset just before -> (result, iterations, launches).  The iteration
+    count is the log's 'Total Iterations', as the JAX package's
+    bench.py reads it; ``args`` ends with the solver parameters, which
+    are copied with ``be_verbose`` on."""
+    params = args[-1].copy()
     params.be_verbose = True
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trs4.yaml")
+        path = os.path.join(tmp, "solve.yaml")
         activate_logger(path)
         try:
             sp.reset_launches()
-            rho, energy, mu = density.trs4(h, isq, nel, params)
+            out = fn(*args[:-1], params)
             counts = dict(sp.launches)
         finally:
             deactivate_logger()
         with open(path) as f:
             log = f.read()
     n = int(re.search(r"^ *Total Iterations: (\d+)$", log, re.M).group(1))
+    return out, n, counts
+
+
+def solve(h, isq, nel, params):
+    """density.trs4 -> (rho, energy, mu, iterations, launches), the
+    launches counted over the solve alone (:func:`logged`)."""
+    (rho, energy, mu), n, counts = logged(density.trs4, h, isq, nel, params)
     return rho, energy, mu, n, counts
 
 
-def purity_invariants(rho, h, nel: float, threshold: float) -> dict:
+def purity_invariants(rho, h, nel: float, threshold: float,
+                      s=None) -> dict:
     """Certificates of a density matrix K, with residuals formed before
     their norms, every multiply at 'highest' so that the tier under test
     does not grade itself:
       idempotency_rel = ||K^2 - K||_F / ||K||_F
       trace_err       = tr K - nel  (compensated trace; trace_abs_err
                         its magnitude)
-      commutator_rel  = ||KH - HK||_F / ||KH||_F"""
-    with alg.capacity_policy(k_out=max(rho.k, h.k), method="pallas_band",
-                             on_overflow="truncate", precision="highest"):
-        k2 = alg.matmul(rho, rho, threshold=threshold)
+      commutator_rel  = ||KH - HK||_F / ||KH||_F
+    With an overlap ``s`` (a non-orthogonal basis), their generalized
+    forms: ||KSK - K||_F / ||K||_F, tr(KS) - nel and
+    ||HKS - SKH||_F / ||HKS||_F, the multiplies at the capacity they
+    need (KS exactly, unfiltered); ``s`` = I gives the values above."""
+    if s is None:
+        policy = alg.capacity_policy(k_out=max(rho.k, h.k),
+                                     method="pallas_band",
+                                     on_overflow="truncate",
+                                     precision="highest")
+    else:
+        policy = alg.capacity_policy(on_overflow="grow",
+                                     precision="highest")
+    with policy:
+        ks = rho if s is None else alg.matmul(rho, s)
+        k2 = alg.matmul(ks, rho, threshold=threshold)
         r = alg.increment(k2, rho, 1.0, -1.0)
         del k2
         idem = math.sqrt(max(float(alg.dot(r, r)), 0.0)
                          / float(alg.dot(rho, rho)))
         del r
-        tr = alg.host_pair(alg.trace_pair(rho))
-        kh = alg.matmul(rho, h, threshold=threshold)
-        hk = alg.matmul(h, rho, threshold=threshold)
+        tr = alg.host_pair(alg.trace_pair(ks))
+        if s is None:
+            kh = alg.matmul(rho, h, threshold=threshold)
+            hk = alg.matmul(h, rho, threshold=threshold)
+        else:
+            kh = alg.matmul(h, ks, threshold=threshold)         # HKS
+            hk = alg.matmul(alg.matmul(s, rho), h,
+                            threshold=threshold)                # SKH
+        del ks
         c = alg.increment(kh, hk, 1.0, -1.0)
         del hk
         comm = math.sqrt(max(float(alg.dot(c, c)), 0.0)

@@ -1,15 +1,19 @@
 """Shared skeleton of the iterative solvers.
 
 Counterpart of ``ntpoly_tpu/solvers/common.py`` (the eager parts):
-resolve params -> monitor -> verbose YAML header -> working Hamiltonian
--> iterate with the monitor -> transform back.  The chunked driver of
-the reference (``run_chunked``) is ROADMAP Queue A item 7.
+resolve params -> monitor -> verbose YAML header -> similarity
+transform into the orthogonal basis -> optional load-balance
+permutation -> iterate with the monitor -> undo the permutation ->
+transform back.  The chunked driver of the reference (``run_chunked``)
+is ROADMAP Queue A item 7: every solver refuses ``iters_per_sync > 1``
+through :func:`eager_only`.
 """
 from __future__ import annotations
 
 from ..parallel import algebra as alg
 from ..parallel import pmatrix as PM
 from ..utils.logging import logger, sub_log
+from ..utils.permutation import permute_matrix, undo_permute_matrix
 from .parameters import SolverParameters, Monitor
 
 
@@ -19,6 +23,14 @@ def resolve(params: SolverParameters | None
     return params, params.monitor()
 
 
+def eager_only(params: SolverParameters) -> None:
+    """Refuse the chunked driver's setting."""
+    if params.iters_per_sync > 1:
+        raise ValueError(
+            "iters_per_sync > 1 needs the chunked driver, which is not "
+            "ported yet (ROADMAP Queue A item 7)")
+
+
 class solver_log:
     """Verbose YAML block (header, method, citations, parameters), and
     the capacity policy of the solve: the pinned capacity
@@ -26,9 +38,10 @@ class solver_log:
     ('truncate') or 'warn' (checks deferred to one sync at the end)."""
 
     def __init__(self, params, header: str, method: str | None = None,
-                 citations: tuple[str, ...] = ()):
+                 citations: tuple[str, ...] = (), extra: dict | None = None):
         self.params, self.header = params, header
         self.method, self.citations = method, citations
+        self.extra = extra or {}
         self._policy = None
 
     def __enter__(self):
@@ -37,6 +50,8 @@ class solver_log:
             logger.enter_sub_log()
             if self.method:
                 logger.write_element("Method", self.method)
+            for key, val in self.extra.items():
+                logger.write_element(key, val)
             if self.citations:
                 with sub_log("Citations"):
                     for c in self.citations:
@@ -128,24 +143,38 @@ def prologue_scalars(wh):
 
 
 def orthogonalize(h, isq, params):
-    """WH = ISQ @ H @ ISQ^T.  An identity ISQ short-circuits (H itself;
-    matrices are immutable).  Any other ISQ needs similarity_transform,
-    which is not ported yet."""
+    """WH = ISQ @ H @ ISQ^H -> (WH, ISQ^H).  An identity ISQ
+    short-circuits before the transpose (H itself, and ISQ as its own
+    transpose; matrices are immutable)."""
     if known_identity(isq):
         return h, isq
-    raise ValueError(
-        "a non-identity ISQ needs similarity_transform, which is not "
-        "ported yet (ROADMAP Queue A item 3)")
+    isqt = alg.transpose(isq).conjugate()
+    wh = alg.similarity_transform(h, isq, isqt, threshold=params.threshold)
+    return wh, isqt
 
 
 def deorthogonalize(x, isq, isqt, params):
-    """K = ISQ^T @ X @ ISQ; the identity short-circuit of
+    """K = ISQ^H @ X @ ISQ; the identity short-circuit of
     :func:`orthogonalize` returned isqt IS isq."""
     if isqt is isq:
         return x
-    raise ValueError(
-        "a non-identity ISQ needs similarity_transform, which is not "
-        "ported yet (ROADMAP Queue A item 3)")
+    return alg.similarity_transform(x, isqt, isq, threshold=params.threshold)
+
+
+def maybe_permute(params, *mats):
+    """Each matrix permuted by params.balance_permutation when load
+    balancing is on, else the matrices as they are (a tuple)."""
+    if params.do_load_balancing and params.balance_permutation is not None:
+        return tuple(permute_matrix(m, params.balance_permutation,
+                                    params.threshold) for m in mats)
+    return mats
+
+
+def maybe_unpermute(params, mat):
+    if params.do_load_balancing and params.balance_permutation is not None:
+        return undo_permute_matrix(mat, params.balance_permutation,
+                                   params.threshold)
+    return mat
 
 
 def identity_like(mat) -> PM.PSMatrix:

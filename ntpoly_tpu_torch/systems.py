@@ -28,3 +28,12 @@ def chain_fn(dim: int):
         diag = -1.0 + 2.0 * i.to(torch.float32) / (dim - 1)
         return torch.where(off == 0, diag, hop)
     return fn
+
+
+def overlap_fn(i, j):
+    """Value function of a banded overlap matrix: ones on the diagonal
+    and 0.3 / (1 + |i - j|)^2 off it (used at half-width 16, where it
+    is symmetric positive definite with eigenvalues in about
+    [0.89, 1.35]), computed in float64."""
+    off = (i - j).abs().to(torch.float64)
+    return torch.where(off == 0, 1.0, 0.3 / (1.0 + off) ** 2)

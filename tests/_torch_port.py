@@ -66,3 +66,32 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def overlap_triplets(dim, halfwidth=16):
+    """(rows, cols, values) of the banded overlap of
+    ``ntpoly_tpu_torch.systems.overlap_fn``: ones on the diagonal,
+    0.3 / (1 + |i - j|)^2 within the half-width."""
+    i = np.arange(dim)
+    off = np.abs(i[:, None] - i[None, :])
+    s = np.where(off == 0, 1.0, 0.3 / (1.0 + off) ** 2) * (off <= halfwidth)
+    rows, cols = np.nonzero(s)
+    return rows, cols, s[rows, cols]
+
+
+def solve_logged(path, log, fn, *args):
+    """fn(*args) with the package's YAML logger writing to ``path`` ->
+    (result, the log's top-level block).  The iteration count is the
+    block's 'Total Iterations', as bench.py reads it."""
+    import warnings
+
+    import yaml
+    log.activate_logger(str(path))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = fn(*args)
+    finally:
+        log.deactivate_logger()
+    doc = yaml.safe_load(path.read_text())
+    return out, next(iter(doc.values()))

@@ -163,9 +163,20 @@ def test_trs4_compensated_pinned_band_interpret(tmp_path):
 
 
 def test_trs4_refuses_unported_paths():
+    """The chunked driver still raises; a non-identity ISQ, which raised
+    until the similarity transform was ported, now solves: ISQ = 2I
+    scales H by 4, which leaves TRS4's iterates as they are, so K and
+    the energy come out 4 times the orthogonal solve's."""
     _, (ph, pi) = systems()
     with pytest.raises(ValueError, match="Queue A item 7"):
         PD.trs4(ph, pi, DIM / 2, PP.SolverParameters(iters_per_sync=4))
     not_identity = PA.scale(pi, 2.0)
-    with pytest.raises(ValueError, match="similarity_transform"):
-        PD.trs4(ph, not_identity, DIM / 2, PP.SolverParameters())
+    params = PP.SolverParameters(precision="highest", threshold=1e-7,
+                                 convergence_metric="energy",
+                                 converge_diff=1e-4)
+    k1, e1, _ = PD.trs4(ph, pi, DIM / 2, params)
+    k4, e4, _ = PD.trs4(ph, not_identity, DIM / 2, params)
+    assert abs(e4 - 4.0 * e1) <= 1e-10 * abs(e4)
+    d1 = np.asarray(PPM.to_dense(k1))
+    assert np.abs(np.asarray(PPM.to_dense(k4)) - 4.0 * d1).max() <= (
+        1e-10 * np.abs(d1).max())
