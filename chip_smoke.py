@@ -83,12 +83,30 @@ Phases, one line each with its seconds:
    splits there; then S -> ISQ -> TRS4 and TRS2 at dim 4096, bs 32, f64
    on the card against the CPU (energies to 1e-10, equal iteration
    counts).
+10. functions: the matrix-function path (profiling/functions.py) at the
+   flagship's width, 2^20 rows, bs 128, f32, each solve timed after a
+   warm-up with its iterations, multiplies, launches and peak memory:
+   the overlap's inverse (Hotelling), inverse square root by
+   `compute_inverse_root` and cube root, CG, TRS4 of H for mu, the sign
+   of H - mu I, sine and cosine of H, exp (Chebyshev, Taylor) and log
+   of the ring Laplacian, held to `functions.BARS` (relative Frobenius
+   errors, 1e-4, the trace 1e-5 per electron); the sign once more at
+   'high', printed; then the path once more with every band and general
+   product and split pass held against its plain version as in phase
+   9; the dense and finite-temperature parity at 8192 rows, bs 128,
+   f64 (`functions.DENSE_BARS`: the eigendecomposition, the dense
+   density, inverse square root, sign and exponential against their
+   iterative solvers, WOM_C and WOM_GC at inverse temperature 50
+   against the dense Fermi-Dirac density); and sign, inverse, exp/log,
+   dense FOE and WOM_C at 2048 rows, bs 32, f64 on the card against
+   the CPU (1e-9 relative).
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
 general kernels in the card's TRS4 solves of phases 7 and 8 at the
-flagship's 'high' and in phase 9's ISQ and timed solves (the `kernels`
-line reports their sum), the split pass in those solves, the stream
+flagship's 'high', in phase 9's ISQ and timed solves and in phase 10's
+timed solves (the `kernels` line reports their sum), the split pass in
+those solves, the stream
 and window kernels in the low-K profile of phase 5, the uniform kernel
 in the round-5 profile of phase 6.  The band, window and uniform
 kernels' entries time their tensor-core products alone at 'high' on
@@ -117,6 +135,7 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from ntpoly_tpu_torch.config import EMPTY
@@ -124,7 +143,8 @@ from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import lowk, lowk_r5, overlap, trs4_tiers
+from ntpoly_tpu_torch.profiling import (functions, lowk, lowk_r5, overlap,
+                                        trs4_tiers)
 from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
                                                    purity_invariants, solve)
 from ntpoly_tpu_torch.solvers import density
@@ -1152,7 +1172,7 @@ def _hold_product(name, args, kw, out, errs) -> str:
     what = (f"{name} {prec} R={R} KA={KA} KB={bc.shape[1]} "
             f"k_out={kw['k_out']} bs={bs} {str(kb.dtype)[6:]}")
     if not ok:
-        raise AssertionError(f"{what} on the overlap path: error "
+        raise AssertionError(f"{what} on the path: error "
                              f"{err:.2e} > {tol:.2e}{exact}, or one of "
                              f"{odd} blocks kept on one side only lies "
                              "above the threshold")
@@ -1170,7 +1190,7 @@ def _hold_split(x, lo, out) -> str:
                for g, w in zip(out, want))
     what = f"split_bf16 {'hi and lo' if lo else 'hi'} {list(x.shape)}"
     if not same:
-        raise AssertionError(f"{what} on the overlap path disagrees with "
+        raise AssertionError(f"{what} on the path disagrees with "
                              "its plain version")
     return f"{what}: bit for bit"
 
@@ -1320,6 +1340,109 @@ def phase_overlap(errs):
     return counts
 
 
+# the timed solves of the functions phase, in the order they run
+FUNCTION_SOLVES = ("isq", "invert", "inv_root_2", "root_3", "cg", "trs4",
+                   "sign", "sign_high", "sine", "cosine", "exp",
+                   "exp_taylor", "log")
+PATH_KERNELS = ("spgemm_band", "spgemm_general", "split_bf16")
+
+
+def _solve_line(name: str, r: dict) -> str:
+    checks = {k: v for k, v in r.items() if isinstance(v, float)
+              and k not in ("seconds", "peak_gib")}
+    return (f"  {name}: iterations {r['iterations']}, {r['seconds']:.3f} "
+            f"s wall, {r['multiplies']} multiplies, launches "
+            f"{r['launches']}, peak memory {r['peak_gib']:.2f} GiB"
+            + "".join(f", {k} {v!r}" for k, v in checks.items()))
+
+
+def functions_products(errs):
+    """The band and general kernels and the split pass held against their
+    plain versions at the shapes the functions path gives them: the
+    path once more at the flagship's width, without warm-ups, inside
+    ``_held_on_path``.  Its launches are not counted."""
+    held = {}
+    with _held_on_path(errs, held):
+        functions.run(1 << 20, 128, "cuda", warm_up=False)
+    torch.cuda.synchronize()
+    for line in held.values():
+        print(f"  held on the path: {line}")
+    kinds = {key[:2] for key in held}
+    if not ({("spgemm_band", "highest"), ("spgemm_general", "highest"),
+             ("split_bf16", True)} <= kinds
+            and kinds & {("spgemm_band", "high"),
+                         ("spgemm_general", "high")}):
+        raise AssertionError("the functions path's products held did not "
+                             "cover the band and general kernels at "
+                             "'highest', a kernel at 'high' and the split")
+
+
+def functions_dense():
+    """The dense and finite-temperature parity at 8192 rows in f64
+    (``functions.dense``), every check within its bar."""
+    res = functions.dense(8192, 128, "cuda")
+    for name, r in res.items():
+        if isinstance(r, dict):
+            print(f"  dense {name}: " + ", ".join(
+                f"{k} {v!r}" for k, v in r.items()))
+    bad = functions.failures(res, functions.DENSE_BARS)
+    if bad:
+        raise AssertionError("dense parity out of bounds: "
+                             + "; ".join(bad))
+
+
+def functions_twin():
+    """Sign, inverse, exp/log, the dense Fermi-Dirac density and
+    ``wom_c`` at 2048 rows, bs 32, f64: the card against the CPU, each
+    result within 1e-9 relative (Frobenius)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sp.reset_launches()
+        t0 = time.perf_counter()
+        out[dev] = functions.twin(2048, 32, dev)
+        launched = {k: sp.launches[k] for k in PATH_KERNELS}
+        print(f"  twin {dev}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{launched}")
+        if (dev == "cpu") == any(launched.values()):
+            raise AssertionError(f"the {dev} twin launched "
+                                 f"{'a' if dev == 'cpu' else 'no'} kernel")
+    diffs = {k: float(np.linalg.norm(out["cuda"][k] - v)
+                      / np.linalg.norm(v)) for k, v in out["cpu"].items()}
+    print(f"  twin card against CPU (relative): {diffs}")
+    if not all(d <= 1e-9 for d in diffs.values()):
+        raise AssertionError("card and CPU disagree on the functions twin")
+
+
+def phase_functions(errs):
+    """The matrix-function path at the flagship's width
+    (``profiling/functions.py``): each solve timed after a warm-up and
+    held to ``functions.BARS`` (the 'high' sign solve's readings only
+    printed); then its kernels against their plain versions at the
+    path's shapes (``functions_products``, into ``errs``), the dense
+    parity at 8192 rows and the card-against-CPU twin.  -> the launch
+    counts of the timed solves."""
+    res = functions.run(1 << 20, 128, "cuda")
+    counts = dict.fromkeys(PATH_KERNELS, 0)
+    for name in FUNCTION_SOLVES:
+        r = res[name]
+        print(_solve_line(name, r))
+        counts = {k: counts[k] + r["launches"][k] for k in counts}
+    bad = functions.failures(res, functions.BARS)
+    if bad:
+        raise AssertionError("functions path out of bounds: "
+                             + "; ".join(bad))
+    if not (counts["spgemm_band"] and counts["spgemm_general"]
+            and res["sign_high"]["launches"]["split_bf16"]):
+        raise AssertionError("the functions path did not launch both the "
+                             "band and the general kernel, or the 'high' "
+                             "sign solve never launched the split pass")
+    functions_products(errs)
+    functions_dense()
+    functions_twin()
+    print(f"  launches on the path: {counts}")
+    return counts
+
+
 def main() -> int:
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -1344,13 +1467,15 @@ def main() -> int:
     parity = run("parity", phase_parity)
     flagship = run("flagship", phase_flagship)
     non_orth = run("overlap", phase_overlap, errs)
-    counts = {k: parity[k] + flagship[k] + non_orth[k]
-              for k in ("spgemm_band", "spgemm_general", "split_bf16")}
+    funcs = run("functions", phase_functions, errs)
+    counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k]
+              for k in PATH_KERNELS}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "
           f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
-          f"low-K profile {low}, round-5 low-K profile {low_r5})")
+          f"functions path {funcs}, low-K profile {low}, round-5 low-K "
+          f"profile {low_r5})")
     for name, n in counts.items():
         if not n:
             raise AssertionError(f"{name} never launched on its path")

@@ -10,7 +10,14 @@ The port covers, on one device, the density-matrix purifications
 (PM, TRS2, TRS4, HPCP and scale-and-fold, ``solvers/density.py``) in
 an orthogonal or a non-orthogonal basis, the latter through the
 overlap's inverse square root (``solvers/squareroot.py``), with
-optional load-balance permutations (``utils/permutation.py``).
+optional load-balance permutations (``utils/permutation.py``); and the
+matrix functions: spectral bounds (``eigenbounds``), the dense
+eigendecomposition and every ``dense_*`` solver on
+``eigen.dense_matrix_function`` (whose ``func`` maps a torch tensor of
+eigenvalues), the dense and wave-operator Fermi solvers (``fermi``),
+inverse and pseudo-inverse, sign and polar decomposition, p-th roots
+and inverse roots, standard, Chebyshev and Hermite polynomials, the
+exponential and logarithm, sine and cosine, and the CG linear solver.
 Tensors on a CUDA device go through the kernels; tensors on the CPU go
 through their plain PyTorch versions.
 """

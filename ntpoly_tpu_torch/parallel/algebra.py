@@ -61,6 +61,15 @@ def capacity_policy(k_out: int | None = None,
             drain_deferred_checks()
 
 
+# matmul calls, counted as the kernels' launches are (reset with
+# reset_multiplies)
+multiplies = {"matmul": 0}
+
+
+def reset_multiplies() -> None:
+    multiplies["matmul"] = 0
+
+
 # deferred overflow / band-violation checks: entries are
 # (device int32 need, capacity_or_None, op label, is_band)
 _pending_checks: list = []
@@ -180,6 +189,7 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
     """
     if not (a.grid == b.grid and a.nb == b.nb and a.bs == b.bs):
         raise ValueError("matmul operands differ in grid or geometry")
+    multiplies["matmul"] += 1
     cap = a.panel_nb
     k_out = min(k_out or _policy_get("k_out") or max(a.k, b.k), cap)
     on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
@@ -337,6 +347,30 @@ def gershgorin_bounds(a: PSMatrix):
     d = diagonal_values(a)
     radius = cs - d.abs()
     return (d - radius).amin(), (d + radius).amax()
+
+
+def spmv(a: PSMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a dense vector x[logical_dim], in A's dtype."""
+    return spmm(a, x[:, None])[:, 0]
+
+
+def spmm(a: PSMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a dense block of vectors X[logical_dim, m]: one
+    (bs, bs) x (bs, m) product per slot, EMPTY slots masked, summed over
+    the slots in A's dtype (full precision: TF32 is off)."""
+    m = x.shape[-1]
+    xb = x.to(a.dtype).reshape(a.nb, a.bs, m)
+    valid = a.col_ids != EMPTY
+    loc = torch.where(valid, a.col_ids, 0).long()
+    xg = xb[loc] * valid[..., None, None].to(a.dtype)   # [Pc,NB,K,bs,m]
+    y = torch.einsum("prkij,prkjm->rim", a.blocks, xg)
+    return y.reshape(a.logical_dim, m)
+
+
+def matrix_sigma(a: PSMatrix) -> torch.Tensor:
+    """Ozaki's sigma for the Hotelling start, 1 / (max column sum)^2
+    (0-d tensor on the device)."""
+    return 1.0 / column_sums(a).amax() ** 2
 
 
 def is_identity(a: PSMatrix) -> bool:

@@ -203,13 +203,22 @@ def banded(dim: int, halfwidth: int, fn, *, bs: int, grid: ProcessGrid,
 
 def from_dense(dense, *, bs: int, grid: ProcessGrid, k: int | None = None,
                dtype=None, threshold: float = 0.0) -> PSMatrix:
-    """Host-side dense -> PSMatrix (test/IO utility): the entries with
-    |x| > threshold, at capacity at least ``k``."""
-    dense = np.asarray(dense)
-    i, j = np.nonzero(np.abs(dense) > threshold)
+    """Dense (numpy array or tensor) -> PSMatrix, blocked on the grid's
+    device: the entries with |x| > threshold, nonzero blocks packed in
+    ascending col order, at capacity the larger of ``k`` and the
+    fullest row."""
+    if not isinstance(dense, torch.Tensor):
+        dense = torch.from_numpy(np.array(dense))
     m = empty(dense.shape[0], bs=bs, k=k, dtype=dtype or dense.dtype,
               grid=grid)
-    return fill_from_triplets(m, i, j, dense[i, j])
+    n = m.logical_dim
+    d = dense.to(grid.device)
+    d = torch.where(d.abs() > threshold, d, 0).to(m.dtype)
+    d = torch.nn.functional.pad(d, (0, n - d.shape[1], 0, n - d.shape[0]))
+    nz = (d != 0).reshape(m.nb, bs, m.nb, bs).any(dim=(1, 3))
+    k_out = max(m.k, int(nz.sum(dim=1).amax()))
+    cc, cb = bell.from_dense(d, bs, k_out)
+    return m.with_data(cc[None], cb[None])
 
 
 def to_dense(m: PSMatrix) -> torch.Tensor:

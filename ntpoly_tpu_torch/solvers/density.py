@@ -7,9 +7,9 @@ Counterpart of ``ntpoly_tpu/solvers/density.py``, eager path only: PM
 inverse square root of the overlap and optionally load-balanced by a
 permutation; and ``energy_density_matrix`` and ``mcweeny_step``.  The
 chemical potential is recovered by bisection over the replayed sigma
-history, as the reference does.  ``iters_per_sync > 1`` (the chunked
-driver) is ROADMAP Queue A item 7; ``dense_density`` waits for
-``fermi.py`` and ``eigen.py`` (Queue A items 5 and 6).
+history, as the reference does; ``dense_density`` diagonalizes
+(``fermi.compute_dense_foe``).  ``iters_per_sync > 1`` (the chunked
+driver) is ROADMAP Queue A item 7.
 
 The purification solvers take the Hamiltonian H, the inverse square
 root ISQ of the overlap and the target trace (electron count), and
@@ -405,11 +405,10 @@ def scale_and_fold(h, isq, trace, homo, lumo,
 
 
 def dense_density(h, isq, trace, params: SolverParameters | None = None):
-    """The dense (eigendecomposition) density solver: needs
-    ``fermi.compute_dense_foe`` and ``eigen.eigh``."""
-    raise ValueError(
-        "dense_density needs fermi.compute_dense_foe and eigen.eigh, "
-        "which are not ported yet (ROADMAP Queue A items 5 and 6)")
+    """The dense (eigendecomposition) density solver: the step-function
+    occupations of ``fermi.compute_dense_foe`` -> (K, energy, mu)."""
+    from .fermi import compute_dense_foe
+    return compute_dense_foe(h, isq, trace, params=params)
 
 
 def energy_density_matrix(h, d, threshold=0.0):

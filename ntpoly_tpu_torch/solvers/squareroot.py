@@ -3,9 +3,9 @@
 Counterpart of ``ntpoly_tpu/solvers/squareroot.py``, eager path only:
 the coupled Newton-Schulz iterations (jansik2007linear), order 2 with
 a Gershgorin rescale every iteration, and the Taylor variants of order
-3 and 5 (5 is the default).  ``iters_per_sync > 1`` (the chunked
-driver) is ROADMAP Queue A item 7; the dense square roots wait for
-``eigen.py``'s dense path (Queue A item 5).
+3 and 5 (5 is the default), and the dense square roots by
+eigendecomposition (``eigen.dense_matrix_function``).
+``iters_per_sync > 1`` (the chunked driver) is ROADMAP Queue A item 7.
 
 The inverse square root of the overlap S is what a purification solver
 takes to work in the orthogonal basis (``density.trs4(H, ISQ, nel)``).
@@ -142,15 +142,16 @@ def _taylor_update(x, imat, order, thr):
 
 
 def dense_square_root(mat, params: SolverParameters | None = None):
-    """The square root by eigendecomposition: needs ``eigen.py``."""
-    raise ValueError(
-        "dense_square_root needs eigen.dense_matrix_function, which is "
-        "not ported yet (ROADMAP Queue A item 5)")
+    """The square root by eigendecomposition."""
+    from .eigen import dense_matrix_function
+    params, _ = resolve(params)
+    with solver_log(params, "Square Root Solver"):
+        return dense_matrix_function(mat, lambda w: w ** 0.5, params)
 
 
 def dense_inverse_square_root(mat, params: SolverParameters | None = None):
-    """The inverse square root by eigendecomposition: needs
-    ``eigen.py``."""
-    raise ValueError(
-        "dense_inverse_square_root needs eigen.dense_matrix_function, "
-        "which is not ported yet (ROADMAP Queue A item 5)")
+    """The inverse square root by eigendecomposition."""
+    from .eigen import dense_matrix_function
+    params, _ = resolve(params)
+    with solver_log(params, "Square Root Solver"):
+        return dense_matrix_function(mat, lambda w: w ** -0.5, params)

@@ -149,5 +149,12 @@ def test_unported_paths_refuse(system):
             getattr(PD, name)(ph, pisq, NEL, chunked)
     with pytest.raises(ValueError, match="Queue A item 7"):
         PD.scale_and_fold(ph, pisq, NEL, -0.1, 0.1, chunked)
-    with pytest.raises(ValueError, match="Queue A items 5 and 6"):
-        PD.dense_density(ph, pisq, NEL)
+    # the dense solver is ported: it ignores iters_per_sync, as in the
+    # reference, and matches the reference's dense solve
+    (rh, risq), _, _, _ = system
+    rk, re_, rmu = RD.dense_density(rh, risq, NEL)
+    pk, pe, pmu = PD.dense_density(ph, pisq, NEL, chunked)
+    assert abs(pe - re_) <= 1e-10 * abs(re_)
+    assert abs(pmu - rmu) <= 1e-10
+    rd, pd = np.asarray(RPM.to_dense(rk)), n(PPM.to_dense(pk))
+    assert np.abs(rd - pd).max() <= 1e-10 * np.abs(rd).max()

@@ -19,9 +19,14 @@ def port_sources():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, ntpoly_tpu_torch\n"
-            "import ntpoly_tpu_torch.solvers.density\n"
-            "import ntpoly_tpu_torch.ops._cuda\n"
+    """Every module of the port, and chip_smoke.py, import without JAX
+    or the JAX package."""
+    code = ("import importlib, pkgutil, sys, ntpoly_tpu_torch\n"
+            "for mod in pkgutil.walk_packages(ntpoly_tpu_torch.__path__,\n"
+            "                                 'ntpoly_tpu_torch.'):\n"
+            "    importlib.import_module(mod.name)\n"
+            "import chip_smoke\n"
+            "assert 'ntpoly_tpu_torch.solvers.trigonometry' in sys.modules\n"
             "bad = [m for m in sys.modules if m == 'jax'\n"
             "       or m.startswith(('jax.', 'ntpoly_tpu.'))\n"
             "       or m == 'ntpoly_tpu']\n"

@@ -119,9 +119,12 @@ def test_refusals():
         PSQ.inverse_square_root(ps, PP.SolverParameters(iters_per_sync=4))
     with pytest.raises(ValueError, match="Taylor order 4"):
         PSQ.square_root(ps, order=4)
-    for fn in (PSQ.dense_square_root, PSQ.dense_inverse_square_root):
-        with pytest.raises(ValueError, match="Queue A item 5"):
-            fn(ps)
+    # the dense square roots are ported: the reference's to 1e-10
+    rs, _ = overlaps(64)
+    for name in ("dense_square_root", "dense_inverse_square_root"):
+        rd = np.asarray(RPM.to_dense(getattr(RSQ, name)(rs)))
+        pd = n(PPM.to_dense(getattr(PSQ, name)(ps)))
+        assert np.abs(rd - pd).max() <= TOL * np.abs(rd).max()
 
 
 def test_timer(tmp_path):
