@@ -100,13 +100,38 @@ Phases, one line each with its seconds:
    against the dense Fermi-Dirac density); and sign, inverse, exp/log,
    dense FOE and WOM_C at 2048 rows, bs 32, f64 on the card against
    the CPU (1e-9 relative).
+11. analysis: the analysis path (profiling/analysis.py) at the
+   flagship's width, 2^20 rows, bs 128, f32, 'highest', threshold 1e-7,
+   each solve timed after a warm-up (the path once at 4096 rows) with
+   its iterations, multiplies, launches and peak memory, held to
+   `analysis.BARS`: the blocked Cholesky of S at 2^18 rows (a cut:
+   PERF.md section 4), ||S - L L^T|| / ||S|| <= 1e-4 formed sparsely by
+   `matmul(..., beta=1, c=S)`, no entry above the diagonal; the rank-256
+   pivoted Cholesky of S within the trace bounds 0 <= tr(S - L L^T) <=
+   tr(S) (1 - 256/N), every column below 256; `reduce_dimension` of the
+   gapped chain with a barrier from row 1024, its eigenvalues within
+   1e-2 of the 1024 lowest of the leading 4096 rows; the purification
+   extrapolation of TRS4's K to the overlap one geometry step later
+   inside the generalized certificates (1e-5, 1e-6 per electron); the
+   Lowdin extrapolation (distances printed); LOBPCG of S for 8 pairs at
+   `tol=None` (its iterations printed: the epsilon rule stops it after
+   one at this size) and for 200 iterations (residuals <= 1e-3
+   lambda_max, max |V^T V - I| <= 1e-5, eigenvalues within 1e-4 of the
+   symbol's minimum, none below it); then the path once more with every
+   band and general product held against its plain version as in phase
+   9; the f64 parity at 8192 rows (`analysis.DENSE_BARS`: the Cholesky
+   factor against `torch.linalg.cholesky`, LOBPCG against `eigvalsh`);
+   and the Cholesky, pivoted Cholesky, `reduce_dimension`, both
+   extrapolations and LOBPCG, real and complex, at 2048 rows, bs 32,
+   f64 on the card against the CPU (1e-9 relative; eigenvectors through
+   V V^H).
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
 general kernels in the card's TRS4 solves of phases 7 and 8 at the
-flagship's 'high', in phase 9's ISQ and timed solves and in phase 10's
-timed solves (the `kernels` line reports their sum), the split pass in
-those solves, the stream
+flagship's 'high', in phase 9's ISQ and timed solves and in the timed
+solves of phases 10 and 11 (the `kernels` line reports their sum), the
+split pass in those solves, the stream
 and window kernels in the low-K profile of phase 5, the uniform kernel
 in the round-5 profile of phase 6.  The band, window and uniform
 kernels' entries time their tensor-core products alone at 'high' on
@@ -143,8 +168,8 @@ from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import (functions, lowk, lowk_r5, overlap,
-                                        trs4_tiers)
+from ntpoly_tpu_torch.profiling import (analysis, functions, lowk, lowk_r5,
+                                        overlap, trs4_tiers)
 from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
                                                    purity_invariants, solve)
 from ntpoly_tpu_torch.solvers import density
@@ -1443,6 +1468,105 @@ def phase_functions(errs):
     return counts
 
 
+# the analysis phase: the path's rows, and the Cholesky's (a cut, PERF.md
+# section 4), the timed solves in the order they run
+ANALYSIS_DIM = 1 << 20
+ANALYSIS_CHOL_DIM = 1 << 18
+ANALYSIS_SOLVES = ("cholesky", "pivoted", "reduce", "purification",
+                   "lowdin", "lobpcg_eps", "lobpcg")
+
+
+def analysis_products(errs):
+    """The band and general kernels held against their plain versions at
+    the shapes the analysis path gives them: the path once more at the
+    flagship's width, without its warm-up, inside ``_held_on_path``.
+    Its launches are not counted."""
+    held = {}
+    with _held_on_path(errs, held):
+        analysis.run(ANALYSIS_DIM, 128, "cuda", warm_up=False,
+                     chol_dim=ANALYSIS_CHOL_DIM)
+    torch.cuda.synchronize()
+    for line in held.values():
+        print(f"  held on the path: {line}")
+    kinds = {key[:2] for key in held}
+    if not {("spgemm_band", "highest"),
+            ("spgemm_general", "highest")} <= kinds:
+        raise AssertionError("the analysis path's products held did not "
+                             "cover the band and general kernels at "
+                             "'highest'")
+
+
+def analysis_dense():
+    """The float64 parity at 8192 rows (``analysis.dense``), every check
+    within its bar."""
+    res = analysis.dense(8192, 128, "cuda")
+    for name, r in res.items():
+        if isinstance(r, dict):
+            print(f"  dense {name}: " + ", ".join(
+                f"{k} {v!r}" for k, v in r.items()))
+    bad = analysis.failures(res, analysis.DENSE_BARS)
+    if bad:
+        raise AssertionError("analysis dense parity out of bounds: "
+                             + "; ".join(bad))
+
+
+def analysis_twin():
+    """The Cholesky, the pivoted Cholesky, ``reduce_dimension``, both
+    extrapolations and LOBPCG (real, and complex through the embedding)
+    at 2048 rows, bs 32, f64: the card against the CPU, each reading
+    within 1e-9 relative (Frobenius; eigenvectors through V V^H)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sp.reset_launches()
+        t0 = time.perf_counter()
+        out[dev] = analysis.twin(2048, 32, dev)
+        launched = {k: sp.launches[k] for k in PATH_KERNELS}
+        print(f"  twin {dev}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{launched}")
+        if (dev == "cpu") == any(launched.values()):
+            raise AssertionError(f"the {dev} twin launched "
+                                 f"{'a' if dev == 'cpu' else 'no'} kernel")
+    diffs = {k: float(np.linalg.norm(out["cuda"][k] - v)
+                      / np.linalg.norm(v)) for k, v in out["cpu"].items()}
+    print(f"  twin card against CPU (relative): {diffs}")
+    if not all(d <= 1e-9 for d in diffs.values()):
+        raise AssertionError("card and CPU disagree on the analysis twin")
+
+
+def phase_analysis(errs):
+    """The analysis path at the flagship's width
+    (``profiling/analysis.py``; the Cholesky at ANALYSIS_CHOL_DIM rows):
+    each solve timed after a warm-up and held to ``analysis.BARS`` (the
+    LOBPCG run at ``tol=None`` and the Lowdin distances only printed);
+    then its kernels against their plain versions at the path's shapes
+    (``analysis_products``, into ``errs``), the dense parity at 8192 rows
+    and the card-against-CPU twin.  -> the launch counts of the timed
+    solves."""
+    res = analysis.run(ANALYSIS_DIM, 128, "cuda",
+                       chol_dim=ANALYSIS_CHOL_DIM)
+    counts = dict.fromkeys(PATH_KERNELS, 0)
+    for name in ANALYSIS_SOLVES:
+        r = res[name]
+        print(_solve_line(name, r))
+        counts = {k: counts[k] + r["launches"][k] for k in counts}
+    eps = res["lobpcg_eps"]
+    print(f"  LOBPCG at tol=None: {eps['iterations'][-1]} iterations, "
+          f"the epsilon rule stopped the loop before {analysis.MAX_ITERS}: "
+          f"{eps['stopped_early']}")
+    bad = analysis.failures(res, analysis.BARS)
+    if bad:
+        raise AssertionError("analysis path out of bounds: "
+                             + "; ".join(bad))
+    if not (counts["spgemm_band"] and counts["spgemm_general"]):
+        raise AssertionError("the analysis path did not launch both the "
+                             "band and the general kernel")
+    analysis_products(errs)
+    analysis_dense()
+    analysis_twin()
+    print(f"  launches on the path: {counts}")
+    return counts
+
+
 def main() -> int:
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -1468,14 +1592,15 @@ def main() -> int:
     flagship = run("flagship", phase_flagship)
     non_orth = run("overlap", phase_overlap, errs)
     funcs = run("functions", phase_functions, errs)
-    counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k]
+    anal = run("analysis", phase_analysis, errs)
+    counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k] + anal[k]
               for k in PATH_KERNELS}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "
           f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
-          f"functions path {funcs}, low-K profile {low}, round-5 low-K "
-          f"profile {low_r5})")
+          f"functions path {funcs}, analysis path {anal}, low-K profile "
+          f"{low}, round-5 low-K profile {low_r5})")
     for name, n in counts.items():
         if not n:
             raise AssertionError(f"{name} never launched on its path")

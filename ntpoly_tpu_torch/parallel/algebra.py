@@ -22,7 +22,7 @@ import torch
 from ..config import EMPTY
 from ..core import bell
 from ..ops import spgemm as sp
-from ..utils.errors import NTPolyError
+from ..utils.errors import ComplexSupportError, NTPolyError
 from .pmatrix import PSMatrix
 
 # ----------------------------------------------------------------------------
@@ -173,8 +173,15 @@ def _pick_method(a: PSMatrix, b: PSMatrix) -> str:
 def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
            k_out: int | None = None, method: str = "auto",
            on_overflow: str | None = None,
-           precision: str | None = None) -> PSMatrix:
-    """C = alpha * A @ B, threshold-filtered.
+           precision: str | None = None, *, beta=0.0,
+           c: PSMatrix | None = None) -> PSMatrix:
+    """alpha * A @ B + beta * C, threshold-filtered.
+
+    ``beta`` and ``c`` are keyword-only here (the reference takes them
+    positionally after ``alpha``): given ``c``, the product is added to
+    beta * C by :func:`increment` at the same threshold.  The kernels
+    are real: complex operands raise, and complex data is multiplied
+    as its 2 x 2 real embedding (``core/cplx.py``).
 
     method: 'pallas' (the kernels: band or general, chosen per call),
     'pallas_band' (band kernel only, full span + compact; a violated
@@ -189,6 +196,12 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
     """
     if not (a.grid == b.grid and a.nb == b.nb and a.bs == b.bs):
         raise ValueError("matmul operands differ in grid or geometry")
+    if a.dtype.is_complex or b.dtype.is_complex:
+        raise ComplexSupportError(
+            "matmul of complex operands: the kernels are real; multiply "
+            "the 2 x 2 real embedding instead (core/cplx.embed, and "
+            "cplx.extract for the result), as the JAX package does on "
+            "the TPU")
     multiplies["matmul"] += 1
     cap = a.panel_nb
     k_out = min(k_out or _policy_get("k_out") or max(a.k, b.k), cap)
@@ -235,7 +248,10 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
                 cb = cb[..., :k_eff, :, :]
             break
         k_out = _k_bucket(need, cap)
-    return PSMatrix(cc, cb, a.dim, a.bs, a.grid)
+    out = PSMatrix(cc, cb, a.dim, a.bs, a.grid)
+    if c is not None:
+        out = increment(c, out, alpha=beta, beta=1.0, threshold=threshold)
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -93,11 +93,10 @@ def geometry(dim: int, bs: int, grid: ProcessGrid):
 def empty(dim: int, *, bs: int, grid: ProcessGrid, k: int | None = None,
           dtype=None) -> PSMatrix:
     """An all-zero matrix at capacity ``k`` (default 1, at most the
-    panel's block columns); fills grow it to what the data needs."""
+    panel's block columns); fills grow it to what the data needs.  A
+    complex dtype is storage only: the kernels are real, and complex
+    data is multiplied as its 2 x 2 real embedding (``core/cplx.py``)."""
     dtype = as_torch_dtype(dtype or default_real_dtype())
-    if dtype.is_complex:
-        raise TypeError("complex matrices are not ported yet (ROADMAP "
-                        "Queue A item 9)")
     nb, pnb = geometry(dim, bs, grid)
     k = min(k or 1, pnb)
     col_ids = torch.full((grid.cols, nb, k), EMPTY, dtype=torch.int32,
@@ -221,10 +220,47 @@ def from_dense(dense, *, bs: int, grid: ProcessGrid, k: int | None = None,
     return m.with_data(cc[None], cb[None])
 
 
+def from_tall_dense(x: torch.Tensor, dim: int, jb0: int, *, bs: int,
+                    grid: ProcessGrid) -> PSMatrix:
+    """A dim x dim PSMatrix whose block columns [jb0, jb0 + wb) hold the
+    dense column block ``x`` [logical_dim, wb * bs] and nothing else:
+    the panel container of the blocked Cholesky, built on ``x``'s
+    device.  Only blocks with a nonzero are kept, in ascending column
+    order from slot 0; the other slots are EMPTY."""
+    nb, pnb = geometry(dim, bs, grid)
+    wb = x.shape[-1] // bs
+    if x.shape[-2] != nb * bs or x.shape[-1] % bs:
+        raise ValueError(f"tall block {tuple(x.shape)} is not "
+                         f"[{nb * bs}, wb * {bs}]")
+    blocks = x.reshape(nb, bs, wb, bs).transpose(1, 2)   # [nb, wb, bs, bs]
+    cols = jb0 + torch.arange(wb, dtype=torch.int32, device=x.device)
+    nz = blocks.abs().sum(dim=(-1, -2)) > 0              # [nb, wb]
+    pidx = torch.arange(grid.cols, dtype=torch.int32,
+                        device=x.device)[:, None, None]
+    keep = ((cols[None, None, :] // pnb) == pidx) & nz[None]
+    col_ids = torch.where(keep, cols[None, None, :], EMPTY).to(torch.int32)
+    out_blocks = torch.where(keep[..., None, None], blocks[None], 0)
+    return PSMatrix(col_ids, out_blocks, dim, bs, grid)
+
+
 def to_dense(m: PSMatrix) -> torch.Tensor:
     """PSMatrix -> dense [dim, dim] tensor (test/IO utility)."""
     d = bell.to_dense(m.col_ids[0], m.blocks[0], nbc=m.nb)
     return d[:m.dim, :m.dim]
+
+
+def to_triplets(m: PSMatrix):
+    """PSMatrix -> (rows, cols, vals) numpy triplets of the stored
+    nonzeros inside ``dim``."""
+    cid = m.col_ids.cpu().numpy()
+    blk = m.blocks.cpu().numpy()
+    bs = m.bs
+    pp, rr, kk, ii, jj = np.nonzero(blk != 0)
+    rows = rr * bs + ii
+    cols = cid[pp, rr, kk] * bs + jj
+    vals = blk[pp, rr, kk, ii, jj]
+    keep = (rows < m.dim) & (cols < m.dim)
+    return rows[keep], cols[keep], vals[keep]
 
 
 def from_reference_arrays(col_ids, blocks, dim: int, bs: int,
@@ -245,3 +281,115 @@ def from_reference_arrays(col_ids, blocks, dim: int, bs: int,
 def to_numpy(m: PSMatrix):
     """(col_ids, blocks) as numpy arrays, the reference's layout."""
     return m.col_ids.cpu().numpy(), m.blocks.cpu().numpy()
+
+
+# ----------------------------------------------------------------------------
+# crop, shift and re-block on the device
+# ----------------------------------------------------------------------------
+
+def _flat_block_coo(m: PSMatrix):
+    """Every slot as block-COO [Pc * NB * K]: (rows, cols, blocks,
+    valid)."""
+    pc, nbr, k = m.col_ids.shape
+    rows = torch.arange(nbr, dtype=torch.int32, device=m.device)
+    rows = rows[None, :, None].expand(pc, nbr, k)
+    return (rows.reshape(-1), m.col_ids.reshape(-1),
+            m.blocks.reshape(-1, m.bs, m.bs),
+            (m.col_ids != EMPTY).reshape(-1))
+
+
+def _crop(rows, cols, blocks, valid, *, rlim: int, clim: int, bs: int,
+          nb2: int, row_off: int, col_off: int):
+    """Shift block-COO by whole blocks into nb2 block rows and columns,
+    zeroing the elements at or beyond the row and column limits ->
+    (rows, cols EMPTY where dropped, blocks, keep)."""
+    rows = rows - row_off
+    cols = torch.where(valid, cols - col_off, cols)
+    keep = valid & (rows >= 0) & (cols >= 0) & (rows < nb2) & (cols < nb2)
+    ar = torch.arange(bs, device=rows.device)
+    r_el = rows[:, None] * bs + ar[None, :]                 # [N, bs]
+    c_el = cols[:, None] * bs + ar[None, :]
+    blocks = (blocks * (r_el < rlim)[:, :, None].to(blocks.dtype)
+              * (c_el < clim)[:, None, :].to(blocks.dtype))
+    return rows, torch.where(keep, cols, EMPTY), blocks, keep
+
+
+def _shift_coo(rows, cols, blocks, valid, *, ro: int, co: int, bs: int):
+    """Block-COO for an element offset (ro, co) inside a block: each
+    block gives up to four candidate output blocks, static sub-block
+    shifts of it (pads of slices, no per-element scatter).  Candidates
+    that land on the same (row, col) are summed by the caller's
+    merge."""
+    pad = torch.nn.functional.pad
+    out_r, out_c, out_b, out_v = [], [], [], []
+    for dr in ((0, 1) if ro else (0,)):
+        for dc in ((0, 1) if co else (0,)):
+            b = blocks
+            if ro:
+                b = (pad(b[:, ro:, :], (0, 0, 0, ro)) if dr == 0
+                     else pad(b[:, :ro, :], (0, 0, bs - ro, 0)))
+            if co:
+                b = (pad(b[:, :, co:], (0, co)) if dc == 0
+                     else pad(b[:, :, :co], (bs - co, 0)))
+            out_r.append(rows - dr)
+            out_c.append(torch.where(valid, cols - dc, cols))
+            out_b.append(b)
+            out_v.append(valid)
+    return (torch.cat(out_r), torch.cat(out_c), torch.cat(out_b),
+            torch.cat(out_v))
+
+
+def _rebuild_device(m: PSMatrix, new_dim: int, row_off: int = 0,
+                    col_off: int = 0, rlim: int | None = None,
+                    clim: int | None = None, ro: int = 0,
+                    co: int = 0) -> PSMatrix:
+    """Crop, shift and re-block on the device, without host triplets:
+    ``row_off``/``col_off`` shift by whole blocks, ``ro``/``co`` by
+    elements inside a block (the candidates of :func:`_shift_coo`,
+    merged after the rebuild)."""
+    grid = m.grid
+    nb2, pnb2 = geometry(new_dim, m.bs, grid)
+    rlim = new_dim if rlim is None else rlim
+    clim = new_dim if clim is None else clim
+    rows, cols, blocks, valid = _flat_block_coo(m)
+    if ro or co:
+        rows, cols, blocks, valid = _shift_coo(rows, cols, blocks, valid,
+                                               ro=ro, co=co, bs=m.bs)
+    rows, cols, blocks, keep = _crop(rows, cols, blocks, valid, rlim=rlim,
+                                     clim=clim, bs=m.bs, nb2=nb2,
+                                     row_off=row_off, col_off=col_off)
+    # the build's capacity is the exact fill of the fullest (panel, row)
+    # (from_block_coo drops what overflows).  The unaligned expansion
+    # lands up to four candidates per output block, all counted, so its
+    # capacity may pass panel_nb; the merge brings it back under
+    fill = torch.zeros((grid.cols, nb2), dtype=torch.int32,
+                       device=rows.device)
+    fill.index_put_((torch.where(keep, cols // pnb2, 0).long(),
+                     torch.where(keep, rows, 0).long()),
+                    keep.to(torch.int32), accumulate=True)
+    k2 = min(max(int(fill.amax()), 1), pnb2 * (4 if (ro or co) else 1))
+    oc, ob = bell.from_block_coo(rows, cols, blocks, keep, nbr=nb2, k=k2,
+                                 panels=grid.cols, panel_nbc=pnb2)
+    if ro or co:
+        oc, ob = bell.merge(oc, ob, min(k2, pnb2), 0.0)
+    return PSMatrix(oc, ob, new_dim, m.bs, grid)
+
+
+def resize(m: PSMatrix, new_dim: int) -> PSMatrix:
+    """Crop or zero-pad to ``new_dim``, on the device."""
+    return _rebuild_device(m, new_dim)
+
+
+def get_slice(m: PSMatrix, start_row: int, end_row: int, start_col: int,
+              end_col: int) -> PSMatrix:
+    """Rows [start_row, end_row) and columns [start_col, end_col) as a
+    new square PSMatrix of the larger extent, on the device for every
+    offset (an unaligned start goes through the shifted candidates of
+    :func:`_shift_coo`)."""
+    new_dim = max(end_row - start_row, end_col - start_col)
+    return _rebuild_device(m, new_dim,
+                           row_off=start_row // m.bs,
+                           col_off=start_col // m.bs,
+                           rlim=end_row - start_row,
+                           clim=end_col - start_col,
+                           ro=start_row % m.bs, co=start_col % m.bs)

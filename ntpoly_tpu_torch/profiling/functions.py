@@ -130,8 +130,8 @@ def _counted(out: dict):
     """While open, the YAML logger writes to a temporary file and the
     kernel launches and ``alg.matmul`` calls count from 0; on exit
     ``out`` holds the 'Total Iterations' of every solve in the log (a
-    list: nested solves log their own), the multiplies and the
-    launches."""
+    list: nested solves log their own; LOBPCG logs 'Iterations'), the
+    multiplies and the launches."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "solve.yaml")
         activate_logger(path)
@@ -144,7 +144,7 @@ def _counted(out: dict):
         with open(path) as f:
             log = f.read()
     out["iterations"] = [int(v) for v in re.findall(
-        r"^ *Total Iterations: (\d+)$", log, re.M)]
+        r"^ *(?:Total )?Iterations: (\d+)$", log, re.M)]
     out["multiplies"] = alg.multiplies["matmul"]
     out["launches"] = {k: sp.launches[k] for k in
                        ("spgemm_band", "spgemm_general", "split_bf16")}

@@ -1,7 +1,9 @@
 """Model Hamiltonians of the benchmarks, as value functions for
 ``parallel.pmatrix.banded``.
 
-Counterpart of the value functions in the JAX package's ``bench.py``.
+Counterpart of the value functions in the JAX package's ``bench.py``,
+and the analysis path's barrier chain and displaced overlap
+(``profiling/analysis.py``).
 """
 from __future__ import annotations
 
@@ -37,3 +39,21 @@ def overlap_fn(i, j):
     [0.89, 1.35]), computed in float64."""
     off = (i - j).abs().to(torch.float64)
     return torch.where(off == 0, 1.0, 0.3 / (1.0 + off) ** 2)
+
+
+def barrier_fn(sites: int, height: float = 2.0):
+    """Value function of the gapped chain (:func:`gapped_fn`) with
+    ``height`` added on the diagonal of every row from ``sites`` on:
+    its ``sites`` lowest states live on the first ``sites`` sites,
+    below a gap of about 1 at height 2."""
+    def fn(i, j):
+        return gapped_fn(i, j) + torch.where((i == j) & (i >= sites),
+                                             height, 0.0)
+    return fn
+
+
+def displaced_overlap_fn(i, j):
+    """The overlap of :func:`overlap_fn` one geometry step later: 0.31
+    in place of 0.3 off the diagonal, computed in float64."""
+    off = (i - j).abs().to(torch.float64)
+    return torch.where(off == 0, 1.0, 0.31 / (1.0 + off) ** 2)

@@ -25,10 +25,9 @@ class IOFormatError(NTPolyError, ValueError):
 
 
 class ComplexSupportError(NTPolyError, TypeError):
-    """Complex device arrays requested on a backend without native complex
-    arithmetic (XLA:TPU).  Use the api layer (``ntpoly_tpu.Matrix_ps``),
-    which routes complex data through the 2x2 real embedding automatically,
-    or embed manually via ``ntpoly_tpu.core.cplx``."""
+    """Complex arithmetic asked of the real-only SpGEMM kernels.  Complex
+    matrices are stored as they are; multiply their 2x2 real embedding
+    (``core/cplx.py``) instead."""
 
 
 class MatrixDimensionError(NTPolyError, ValueError):

@@ -95,3 +95,14 @@ def solve_logged(path, log, fn, *args):
         log.deactivate_logger()
     doc = yaml.safe_load(path.read_text())
     return out, next(iter(doc.values()))
+
+
+def to_reference(m):
+    """The port's matrix as the reference's (1x1x1 grid), slot for
+    slot."""
+    from ntpoly_tpu.parallel import pmatrix as RPM
+    from ntpoly_tpu.parallel.grid import ProcessGrid as RGrid
+    from ntpoly_tpu_torch.parallel import pmatrix as PPM
+    grid = RGrid(1, 1, 1)
+    return RPM.PSMatrix(*RPM._shard(grid, *PPM.to_numpy(m)), m.dim, m.bs,
+                        grid)

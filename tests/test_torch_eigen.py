@@ -212,14 +212,6 @@ def test_eigen_decomposition(rng, dtype, nvals):
     assert rel(n(PPM.to_dense(ev)), pw) == 0.0
 
 
-def test_unported_iterative_eigensolver_refuses(rng):
-    _, pm = pair(symmetric(rng))
-    with pytest.raises(ValueError, match="Queue A item 6.12"):
-        PE.eigen_decomposition_iterative(pm, 4)
-    with pytest.raises(ValueError, match="Queue A item 6.12"):
-        PE.dedup_embedded_pairs(None, None, 64, 4)
-
-
 def _oracle(fn, m):
     w, v = np.linalg.eigh(m)
     return (v * fn(w)) @ v.T

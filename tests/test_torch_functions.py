@@ -369,9 +369,3 @@ def test_chunked_driver_refused(rng, fn, args):
     args = tuple(pm if a == "b" else a for a in args)
     with pytest.raises(ValueError, match="Queue A item 7"):
         fn(pm, *args, PP.SolverParameters(iters_per_sync=4))
-
-
-def test_cholesky_refuses(rng):
-    _, pm = pair(create_matrix(rng, spd=True, diag_dom=True))
-    with pytest.raises(ValueError, match="Queue A item 6.8"):
-        PL.cholesky_decomposition(pm)

@@ -19,8 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from ntpoly_tpu.parallel import pmatrix as RPM
-from ntpoly_tpu.parallel.grid import ProcessGrid as RGrid
 from ntpoly_tpu.solvers import linear as RL
 from ntpoly_tpu.solvers import parameters as RP
 from ntpoly_tpu.solvers import roots as RR
@@ -30,7 +28,7 @@ from ntpoly_tpu_torch.parallel.grid import ProcessGrid
 from ntpoly_tpu_torch.profiling import functions as F
 from ntpoly_tpu_torch.profiling.overlap import system
 
-import _torch_port  # noqa: F401  (one torch thread per worker)
+from _torch_port import to_reference
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -80,13 +78,6 @@ def test_functions_twin_small():
     assert abs(np.trace(0.5 * (np.eye(256) - out["sign"])) - 128) <= 1e-6
 
 
-def _to_reference(m):
-    """The port's matrix as the reference's, slot for slot."""
-    grid = RGrid(1, 1, 1)
-    return RPM.PSMatrix(*RPM._shard(grid, *PPM.to_numpy(m)), m.dim, m.bs,
-                        grid)
-
-
 def _from_reference(m, like):
     return PPM.from_reference_arrays(m.col_ids, m.blocks, m.dim, m.bs,
                                      like.grid)
@@ -100,7 +91,7 @@ def fine_threshold_readings(dim: int, bs: int, threshold: float,
     checked by the port's products at 'highest', as ``F.run`` checks
     its own."""
     h, s, _ = system(dim, bs, "cpu", dtype)
-    rs, rh = _to_reference(s), _to_reference(h)
+    rs, rh = to_reference(s), to_reference(h)
     out = {}
     for tag, root, cg in (
             ("jax", RR.compute_root(rs, 3, RP.SolverParameters(
