@@ -16,12 +16,23 @@ import torch
 # Sentinel marking an empty block slot (dims < 2**30 blocks).
 EMPTY = 2**30
 
+# Default block size of the NTPoly-compatible surface for matrices of
+# 1024 rows and more (``api._auto_bs`` picks smaller ones below).
+DEFAULT_BLOCK_SIZE = 128
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
 def default_real_dtype() -> torch.dtype:
     return torch.get_default_dtype()
+
+
+def default_complex_dtype() -> torch.dtype:
+    """complex128 when the default real dtype is float64, else
+    complex64."""
+    return (torch.complex128 if default_real_dtype() == torch.float64
+            else torch.complex64)
 
 
 def as_torch_dtype(dtype) -> torch.dtype:

@@ -156,6 +156,16 @@ def union_fill_n(cols_list) -> Tensor:
     return first.sum(dim=-1, dtype=torch.int32)
 
 
+def union_fill(a_cols: Tensor, b_cols: Tensor) -> Tensor:
+    """Exact per-row structural fill of A + B."""
+    return union_fill_n([a_cols, b_cols])
+
+
+def occupancy(cols: Tensor) -> Tensor:
+    """Per-row count of occupied slots: [..., K] -> [...]."""
+    return (cols != EMPTY).sum(dim=-1, dtype=torch.int32)
+
+
 def used_slots(cols: Tensor) -> Tensor:
     """Highest occupied slot index + 1: [..., K] -> [...].  Correct for
     hole-bearing layouts, so capacity trims use this."""
@@ -163,6 +173,13 @@ def used_slots(cols: Tensor) -> Tensor:
     ar = torch.arange(1, k + 1, dtype=torch.int32, device=cols.device)
     idx = torch.where(cols != EMPTY, ar, torch.zeros_like(ar))
     return idx.amax(dim=-1)
+
+
+def add(a_cols, a_blocks, b_cols, b_blocks, alpha=1.0, beta=1.0,
+        threshold=0.0, k_out: int | None = None) -> Tuple[Tensor, Tensor]:
+    """alpha*A + beta*B with threshold flush (one :func:`add_n`)."""
+    return add_n([a_cols, b_cols], [a_blocks, b_blocks], [alpha, beta],
+                 threshold=threshold, k_out=k_out)
 
 
 def add_n(cols_list, blocks_list, coeffs, threshold=0.0,
@@ -179,6 +196,122 @@ def add_n(cols_list, blocks_list, coeffs, threshold=0.0,
         [b.to(dt) * torch.as_tensor(a, dtype=dt)
          for b, a in zip(blocks_list, coeffs)], dim=-3)
     return merge(cols, blocks, k_out, threshold)
+
+
+# ----------------------------------------------------------------------------
+# SpGEMM tiers of plain torch (the reference's XLA tiers)
+# ----------------------------------------------------------------------------
+# The kernels of ``ops/spgemm.py`` take f32/f64 at block sizes that are
+# multiples of 8.  Other shapes take these tiers, as the reference's
+# XLA tiers serve the shapes its Pallas kernels refuse.  Unlike the
+# kernels, they pack their output: 'acc' and 'dense' keep the largest
+# blocks of a row that overflows k_out (``compact``), 'cand' its lowest
+# col ids with holes where a whole block flushes (``merge``).
+
+# bytes of dense accumulator (or gathered candidates) per pass over rows
+_ROW_BYTES = 1 << 30
+
+
+def _row_passes(rows: int, per_row_bytes: int) -> int:
+    """Row chunk that keeps one pass's temporaries under _ROW_BYTES."""
+    return max(1, min(rows, _ROW_BYTES // max(per_row_bytes, 1)))
+
+
+def _result_dtype(a_blocks: Tensor, b_blocks: Tensor) -> torch.dtype:
+    return torch.promote_types(a_blocks.dtype, b_blocks.dtype)
+
+
+def _b_rows(a_cols: Tensor, b_cols: Tensor, b_blocks: Tensor):
+    """B's block rows named by A's slots -> (valid [R, KA], cols [R, KA,
+    KB], blocks [R, KA, KB, bs, bs]); EMPTY slots of A gather row 0."""
+    valid = a_cols != EMPTY
+    ks = torch.where(valid, a_cols, 0).long()
+    return valid, b_cols[ks], b_blocks[ks]
+
+
+def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
+           b_blocks: Tensor, *, col_offset: int, nbc_out: int, k_out: int,
+           threshold=0.0, alpha=1.0) -> Tuple[Tensor, Tensor]:
+    """C = alpha * A @ B, threshold-filtered: the dense-accumulator
+    tier ('acc').
+
+    A: [R, KA] slots whose col ids index block rows of B.  B: [NBK, KB]
+    slots whose col ids lie in the output panel [col_offset, col_offset
+    + nbc_out).  Each row's products are summed, slot of A by slot of
+    A, into a dense row of nbc_out blocks, which is scaled by alpha,
+    thresholded and compacted to k_out slots (:func:`compact`).  Rows
+    are processed in passes that bound the accumulator."""
+    R, KA = a_cols.shape
+    bs = a_blocks.shape[-1]
+    dt = _result_dtype(a_blocks, b_blocks)
+    step = _row_passes(R, nbc_out * bs * bs * 8)
+    cols_out, blocks_out = [], []
+    for r0 in range(0, R, step):
+        ac, ab = a_cols[r0:r0 + step], a_blocks[r0:r0 + step].to(dt)
+        valid, bc, bb = _b_rows(ac, b_cols, b_blocks)
+        n = ac.shape[0]
+        # one spare column takes the products of EMPTY slots
+        acc = ab.new_zeros((n, nbc_out + 1, bs, bs))
+        rows = torch.arange(n, device=ac.device)[:, None]
+        for s in range(KA):
+            part = torch.matmul(ab[:, s, None], bb[:, s].to(dt))
+            tval = (bc[:, s] != EMPTY) & valid[:, s, None]
+            loc = torch.where(tval, bc[:, s].long() - col_offset, nbc_out)
+            acc.index_put_((rows.expand_as(loc), loc), part,
+                           accumulate=True)
+        acc = acc[:, :nbc_out] * torch.as_tensor(alpha, dtype=dt)
+        out_cols = (torch.arange(nbc_out, dtype=torch.int32,
+                                 device=ac.device) + col_offset
+                    ).expand(n, nbc_out)
+        cc, cb = compact(out_cols, acc, k_out, threshold)
+        cols_out.append(cc)
+        blocks_out.append(cb)
+    return torch.cat(cols_out), torch.cat(blocks_out)
+
+
+def spgemm_candidates(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
+                      b_blocks: Tensor, *, col_offset: int = 0, k_out: int,
+                      threshold=0.0, alpha=1.0) -> Tuple[Tensor, Tensor]:
+    """C = alpha * A @ B by explicit partial products and a k-way merge
+    ('cand'): each slot of A multiplies the whole B row it names, and
+    the KA * KB candidate blocks of a row are summed by :func:`merge`.
+    ``col_offset`` is kept for the signature: candidate ids come from
+    B directly."""
+    R, KA = a_cols.shape
+    KB = b_cols.shape[-1]
+    bs = a_blocks.shape[-1]
+    dt = _result_dtype(a_blocks, b_blocks)
+    step = _row_passes(R, KA * KB * bs * bs * 8 * 3)
+    cols_out, blocks_out = [], []
+    for r0 in range(0, R, step):
+        ac, ab = a_cols[r0:r0 + step], a_blocks[r0:r0 + step].to(dt)
+        valid, bc, bb = _b_rows(ac, b_cols, b_blocks)
+        n = ac.shape[0]
+        parts = torch.matmul(ab[:, :, None], bb.to(dt)) \
+            * torch.as_tensor(alpha, dtype=dt)
+        cand = torch.where(valid[..., None] & (bc != EMPTY), bc,
+                           torch.tensor(EMPTY, dtype=bc.dtype,
+                                        device=bc.device))
+        cc, cb = merge(cand.reshape(n, KA * KB),
+                       parts.reshape(n, KA * KB, bs, bs), k_out, threshold)
+        cols_out.append(cc)
+        blocks_out.append(cb)
+    return torch.cat(cols_out), torch.cat(blocks_out)
+
+
+def spgemm_dense(a_cols, a_blocks, b_cols, b_blocks, *, col_offset: int,
+                 nbc_out: int, k_out: int, nbk: int, threshold=0.0,
+                 alpha=1.0) -> Tuple[Tensor, Tensor]:
+    """C = alpha * A @ B by densifying both operands, one dense product
+    and re-blocking ('dense'); ``nbk`` is B's block-row count."""
+    dt = _result_dtype(a_blocks, b_blocks)
+    ad = to_dense(a_cols, a_blocks.to(dt), nbc=nbk)
+    bd = to_dense(b_cols, b_blocks.to(dt), nbc=nbc_out,
+                  col_offset=col_offset)
+    cd = torch.as_tensor(alpha, dtype=dt) * (ad @ bd)
+    cd = torch.where(cd.abs() > threshold, cd, cd.new_zeros(()))
+    return from_dense(cd, bs=a_blocks.shape[-1], k=k_out,
+                      col_offset=col_offset)
 
 
 # ----------------------------------------------------------------------------
@@ -248,8 +381,9 @@ def align_mul(a_cols, a_blocks, b_cols, b_blocks) -> Tensor:
 
 
 def dot(a_cols, a_blocks, b_cols, b_blocks) -> Tensor:
-    """sum_ij A_ij * B_ij on one shard (real matrices)."""
-    return align_mul(a_cols, a_blocks, b_cols, b_blocks).sum()
+    """sum_ij conj(A_ij) * B_ij on one shard (A conjugated when
+    complex)."""
+    return align_mul(a_cols, torch.conj(a_blocks), b_cols, b_blocks).sum()
 
 
 def comp_sum(x: Tensor) -> Tensor:
@@ -287,6 +421,21 @@ def col_abs_sums(cols: Tensor, blocks: Tensor, nbc: int) -> Tensor:
     return out
 
 
+def diagonal_scale(cols: Tensor, blocks: Tensor, dvec_rows=None,
+                   dvec_cols=None) -> Tensor:
+    """Scale rows by dvec_rows[..., R, bs] and/or columns by
+    dvec_cols[nbc, bs] (gathered by each slot's col id)."""
+    out = blocks
+    if dvec_rows is not None:
+        out = out * dvec_rows[..., :, None, :, None]
+    if dvec_cols is not None:
+        valid = cols != EMPTY
+        loc = torch.where(valid, cols, 0).long()
+        dc = dvec_cols[loc] * valid[..., None].to(dvec_cols.dtype)
+        out = out * dc[..., None, :]
+    return out
+
+
 def filter_small(cols: Tensor, blocks: Tensor, threshold,
                  k_out: int | None = None) -> Tuple[Tensor, Tensor]:
     """Drop |v| <= threshold and re-pack (:func:`compact` at the same
@@ -298,6 +447,62 @@ def filter_small(cols: Tensor, blocks: Tensor, threshold,
 def grand_sum(blocks: Tensor) -> Tensor:
     """Sum of every stored value."""
     return blocks.sum()
+
+
+# ----------------------------------------------------------------------------
+# triplets <-> block-ELL
+# ----------------------------------------------------------------------------
+
+def from_triplets(rows: Tensor, cols: Tensor, vals: Tensor, *, nbr: int,
+                  nbc: int, bs: int, k: int = 1, panels: int = 1
+                  ) -> Tuple[Tensor, Tensor]:
+    """Block-ELL [panels, nbr, K] from (i, j, v) tensors on one device,
+    without a dense matrix: duplicate coordinates are summed in the
+    order given, and each (panel, block row) packs its blocks from slot
+    0 in ascending col order, K the larger of ``k`` and the fullest
+    row's need.  Column panel ``p`` holds block columns ``p * nbc //
+    panels`` onward."""
+    dev = vals.device
+    ub, inv = torch.unique(rows // bs * nbc + cols // bs, sorted=True,
+                           return_inverse=True)
+    nub = ub.numel()
+    blocks = torch.zeros((nub, bs, bs), dtype=vals.dtype, device=dev)
+    blocks.index_put_((inv, rows % bs, cols % bs), vals, accumulate=True)
+    del inv
+    ubi, ubj = ub // nbc, ub % nbc
+    p = ubj // (nbc // panels)
+    if panels > 1:                        # (panel, row, col) order
+        order = torch.argsort(p * nbr * nbc + ub, stable=True)
+        p, ubi, ubj, blocks = p[order], ubi[order], ubj[order], \
+            blocks[order]
+    grp = p * nbr + ubi
+    idx = torch.arange(nub, device=dev)
+    first = torch.ones(nub, dtype=torch.bool, device=dev)
+    first[1:] = grp[1:] != grp[:-1]
+    slot = idx - torch.cummax(torch.where(first, idx, 0), dim=0).values
+    k = max(k, int(slot.max()) + 1 if nub else 1)
+    out_cols = torch.full((panels, nbr, k), EMPTY, dtype=torch.int32,
+                          device=dev)
+    out_cols[p, ubi, slot] = ubj.to(torch.int32)
+    out_blocks = torch.zeros((panels, nbr, k, bs, bs), dtype=vals.dtype,
+                             device=dev)
+    out_blocks[p, ubi, slot] = blocks
+    return out_cols, out_blocks
+
+
+def to_triplets(cols: Tensor, blocks: Tensor, n_rows: int, n_cols: int
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(i, j, v) tensors of the stored nonzeros of block-ELL ``cols``
+    [..., R, K] and ``blocks`` [..., R, K, bs, bs] with i < ``n_rows``
+    and j < ``n_cols``, in the order of the stored entries (leading
+    index, block row, slot, row and column inside the block)."""
+    bs = blocks.shape[-1]
+    *lead, rr, kk, ii, jj = torch.nonzero(blocks != 0, as_tuple=True)
+    i = rr * bs + ii
+    j = cols[(*lead, rr, kk)].long() * bs + jj
+    v = blocks[(*lead, rr, kk, ii, jj)]
+    keep = (i < n_rows) & (j < n_cols)
+    return i[keep], j[keep], v[keep]
 
 
 # ----------------------------------------------------------------------------

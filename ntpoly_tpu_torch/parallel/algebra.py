@@ -124,6 +124,12 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
     # span, the threshold flush empties the decayed tails, and
     # bell.compact re-bases to k_out.  The fill stat then reports the
     # filtered need (surviving slots).
+    if method in XLA_TIERS:
+        cc, cb = _xla_tier(method, agc, agb, bgc, bgb, alpha, threshold,
+                           k_out=k_out, nbc_out=a.panel_nb)
+        stats = torch.stack([fill.to(torch.int32),
+                             bell.used_slots(cc).amax().to(torch.int32)])
+        return cc[None], cb[None], stats
     k_run = k_out
     band = method == "pallas_band"
     if band:
@@ -146,6 +152,26 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
     return cc[None], cb[None], stats
 
 
+# the reference's XLA tiers, plain torch here (``core/bell.py``)
+XLA_TIERS = ("acc", "cand", "dense")
+METHODS = ("pallas", "pallas_band") + XLA_TIERS
+
+
+def _xla_tier(method, agc, agb, bgc, bgb, alpha, threshold, *, k_out,
+              nbc_out):
+    if method == "dense":
+        return bell.spgemm_dense(agc, agb, bgc, bgb, col_offset=0,
+                                 nbc_out=nbc_out, k_out=k_out,
+                                 nbk=bgc.shape[0], threshold=threshold,
+                                 alpha=alpha)
+    if method == "cand":
+        return bell.spgemm_candidates(agc, agb, bgc, bgb, col_offset=0,
+                                      k_out=k_out, threshold=threshold,
+                                      alpha=alpha)
+    return bell.spgemm(agc, agb, bgc, bgb, col_offset=0, nbc_out=nbc_out,
+                       k_out=k_out, threshold=threshold, alpha=alpha)
+
+
 def fill_bound(a: PSMatrix, b: PSMatrix) -> int:
     """Exact structural capacity A @ B needs: the largest fill of any
     row (one host read)."""
@@ -157,17 +183,19 @@ def _k_bucket(n: int, cap: int) -> int:
     return min(-(-max(n, 1) // 4) * 4, cap)
 
 
-_UNPORTED = ("the reference's XLA tiers ('acc', 'cand', 'dense') are "
-             "not ported yet")
-
-
-def _pick_method(a: PSMatrix, b: PSMatrix) -> str:
+def _pick_method(a: PSMatrix, b: PSMatrix, k_out: int) -> str:
     """The kernel tier whenever the kernels take the dtype and block
     size (on a CUDA device they launch; on the CPU their plain versions
-    run).  Other shapes need the reference's XLA tiers."""
+    run).  Other shapes take the reference's arms for the shapes its
+    kernels refuse (reference parallel/algebra.py ``_pick_method``):
+    'dense' at 90% block occupancy, 'cand' while a row's candidates
+    stay within max(64, 8 k_out), else 'acc'."""
     if sp.eligible(torch.promote_types(a.dtype, b.dtype), a.bs):
         return "pallas"
-    raise ValueError(f"matmul of {a.dtype} at bs={a.bs}: {_UNPORTED}")
+    if min(a.k, b.k) >= 0.9 * a.nb:
+        return "dense"
+    n_cand = a.grid.cols * a.k * b.k
+    return "cand" if n_cand <= max(64, 8 * k_out) else "acc"
 
 
 def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
@@ -185,8 +213,10 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
 
     method: 'pallas' (the kernels: band or general, chosen per call),
     'pallas_band' (band kernel only, full span + compact; a violated
-    band assumption raises), 'auto' (the policy's method, else
-    :func:`_pick_method`).  'acc', 'cand' and 'dense' are not ported.
+    band assumption raises), 'acc', 'cand' and 'dense' (the
+    reference's XLA tiers in plain torch, ``core/bell.py``: for the
+    dtypes and block sizes the kernels do not take), 'auto' (the
+    policy's method, else :func:`_pick_method`).
 
     on_overflow: 'grow' (default) re-runs with enough capacity when the
     structural fill exceeds k_out, and trims unused capacity; 'warn'
@@ -211,9 +241,9 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
     grow = on_overflow == "grow"
     while True:
         if requested == "auto":
-            method = _policy_get("method") or _pick_method(a, b)
-        if method not in ("pallas", "pallas_band"):
-            raise ValueError(f"matmul method {method!r}: {_UNPORTED}")
+            method = _policy_get("method") or _pick_method(a, b, k_out)
+        if method not in METHODS:
+            raise ValueError(f"matmul method {method!r} not in {METHODS}")
         band = method == "pallas_band"
         # as in the reference, eager 'warn' without the band method
         # does not measure the structural fill (ROADMAP Queue C)
@@ -338,6 +368,27 @@ def dot_pair(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
     return bell.comp_sum(prod)
 
 
+def pairwise_multiply(a: PSMatrix, b: PSMatrix) -> PSMatrix:
+    """Hadamard product on A's slots, compacted at A's capacity."""
+    prod = bell.align_mul(a.col_ids, a.blocks, b.col_ids, b.blocks)
+    cc, cb = bell.compact(a.col_ids, prod, min(max(a.k, 1), a.panel_nb))
+    return PSMatrix(cc, cb, a.dim, a.bs, a.grid)
+
+
+def diagonal_scale(a: PSMatrix, dvals, side: str = "right") -> PSMatrix:
+    """Scale columns ('right': A diag(d)) or rows ('left': diag(d) A) by
+    ``dvals`` (numpy or a tensor, zero-padded to the logical
+    dimension), on A's device."""
+    d = torch.as_tensor(dvals).to(device=a.device, dtype=a.dtype)
+    d = torch.nn.functional.pad(d, (0, a.logical_dim - d.shape[0]))
+    d = d.reshape(a.nb, a.bs)
+    if side == "right":
+        b = bell.diagonal_scale(a.col_ids, a.blocks, dvec_cols=d)
+    else:
+        b = bell.diagonal_scale(a.col_ids, a.blocks, dvec_rows=d)
+    return a.with_data(a.col_ids, b)
+
+
 def host_pair(p) -> float:
     """(hi, lo) pair -> float64 on the host (one readback)."""
     hi, lo = (float(v) for v in p.double().tolist())
@@ -454,6 +505,16 @@ def transpose(a: PSMatrix, k_out: int | None = None,
 def norm(a: PSMatrix) -> torch.Tensor:
     """The max column 1-norm (0-d tensor on the device)."""
     return column_sums(a).amax()
+
+
+def measure_asymmetry(a: PSMatrix) -> torch.Tensor:
+    """norm(A - A^T), the max column 1-norm (0-d tensor)."""
+    return norm(increment(transpose(a), a, alpha=-1.0, beta=1.0))
+
+
+def symmetrize(a: PSMatrix) -> PSMatrix:
+    """(A + A^T) / 2."""
+    return increment(scale(a, 0.5), transpose(scale(a, 0.5)))
 
 
 def similarity_transform(a: PSMatrix, p: PSMatrix, pinv: PSMatrix,

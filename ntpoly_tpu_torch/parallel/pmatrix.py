@@ -19,7 +19,7 @@ import torch
 
 from ..config import EMPTY, as_torch_dtype, default_real_dtype
 from ..core import bell
-from .grid import ProcessGrid
+from .grid import ProcessGrid, global_grid
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,12 +90,14 @@ def geometry(dim: int, bs: int, grid: ProcessGrid):
     return nb, nb // grid.cols
 
 
-def empty(dim: int, *, bs: int, grid: ProcessGrid, k: int | None = None,
-          dtype=None) -> PSMatrix:
+def empty(dim: int, *, bs: int, grid: ProcessGrid | None = None,
+          k: int | None = None, dtype=None) -> PSMatrix:
     """An all-zero matrix at capacity ``k`` (default 1, at most the
-    panel's block columns); fills grow it to what the data needs.  A
-    complex dtype is storage only: the kernels are real, and complex
-    data is multiplied as its 2 x 2 real embedding (``core/cplx.py``)."""
+    panel's block columns) on ``grid`` (the global grid unless given);
+    fills grow it to what the data needs.  A complex dtype is storage
+    only: the kernels are real, and complex data is multiplied as its
+    2 x 2 real embedding (``core/cplx.py``)."""
+    grid = grid or global_grid()
     dtype = as_torch_dtype(dtype or default_real_dtype())
     nb, pnb = geometry(dim, bs, grid)
     k = min(k or 1, pnb)
@@ -110,54 +112,49 @@ def _eye_fn(i, j):
     return torch.where(i == j, 1.0, 0.0)
 
 
-def identity(dim: int, *, bs: int, grid: ProcessGrid, dtype=None
-             ) -> PSMatrix:
+def identity(dim: int, *, bs: int, grid: ProcessGrid | None = None,
+             dtype=None, k: int | None = None) -> PSMatrix:
     """Ones on the actual (unpadded) diagonal, built as a band of width
-    0.  It carries the ``_known_identity`` tag, which the solvers read
-    instead of checking the values (any derived matrix is untagged)."""
+    0, EMPTY-padded to capacity ``k`` when that is given.  It carries
+    the ``_known_identity`` tag, which the solvers read instead of
+    checking the values (any derived matrix is untagged)."""
     out = fill_banded(empty(dim, bs=bs, dtype=dtype, grid=grid), 0,
                       _eye_fn)
+    if k and k > out.k:
+        cc, cb = bell.pad_slots(out.col_ids, out.blocks,
+                                min(k, out.panel_nb))
+        out = out.with_data(cc, cb)
     object.__setattr__(out, "_known_identity", True)
     return out
 
 
+def _as_device(x, device, dtype=None) -> torch.Tensor:
+    """A numpy array or a tensor on ``device`` (as ``dtype``)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
 def fill_from_triplets(m: PSMatrix, rows, cols, vals) -> PSMatrix:
-    """Build the block-ELL arrays from global (i, j, v) triplets on the
-    host (numpy), then move them to the grid's device.  Duplicate
-    coordinates are summed; slots are packed in ascending col order."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    vals = np.asarray(vals)
-    if ((rows.size and rows.max(initial=0) >= m.logical_dim)
-            or (cols.size and cols.max(initial=0) >= m.logical_dim)):
-        raise ValueError("triplet coordinates beyond matrix dimension")
-    bs, nb, pnb = m.bs, m.nb, m.panel_nb
-    np_dtype = torch.empty(0, dtype=m.dtype).numpy().dtype
-    bi, bj = rows // bs, cols // bs
-    bid = bi * nb + bj
-    ub, inv = np.unique(bid, return_inverse=True)
-    nub = len(ub)
-    blocks = np.zeros((nub, bs, bs), np_dtype)
-    np.add.at(blocks, (inv, rows % bs, cols % bs), vals.astype(np_dtype))
-    ubi, ubj = ub // nb, ub % nb
-    p = ubj // pnb
-    order = np.lexsort((ubj, ubi, p))
-    sp, sr, sc = p[order], ubi[order], ubj[order]
-    sb = blocks[order]
-    grp = sp * nb + sr
-    first = np.ones(nub, bool)
-    first[1:] = grp[1:] != grp[:-1]
-    start = np.maximum.accumulate(np.where(first, np.arange(nub), 0))
-    slot = np.arange(nub) - start
-    k_needed = int(slot.max()) + 1 if nub else 1
-    k = max(m.k, k_needed)
-    col_ids = np.full((m.panels, nb, k), EMPTY, np.int32)
-    col_ids[sp, sr, slot] = sc
-    out_blocks = np.zeros((m.panels, nb, k, bs, bs), np_dtype)
-    out_blocks[sp, sr, slot] = sb
+    """Build the block-ELL arrays from global (i, j, v) triplets (numpy
+    arrays or tensors) on the grid's device.  Each value is rounded to
+    the matrix dtype, then duplicate coordinates are summed in the
+    order given; slots are packed in ascending col order, at the
+    larger of ``m.k`` and the fullest row's need.  Coordinates may
+    address the padded region."""
     dev = m.grid.device
-    return m.with_data(torch.from_numpy(col_ids).to(dev),
-                       torch.from_numpy(out_blocks).to(dev))
+    r = _as_device(rows, dev, torch.int64)
+    c = _as_device(cols, dev, torch.int64)
+    if not isinstance(vals, torch.Tensor):
+        vals = np.asarray(vals)
+        np_dtype = torch.empty(0, dtype=m.dtype).numpy().dtype
+        vals = vals.astype(np_dtype, copy=False)
+    v = _as_device(vals, dev, m.dtype)
+    if r.numel() and max(int(r.max()), int(c.max())) >= m.logical_dim:
+        raise ValueError("triplet coordinates beyond matrix dimension")
+    col_ids, blocks = bell.from_triplets(r, c, v, nbr=m.nb, nbc=m.nb,
+                                         bs=m.bs, k=m.k, panels=m.panels)
+    return m.with_data(col_ids, blocks)
 
 
 def fill_banded(m: PSMatrix, halfwidth: int, fn,
@@ -193,19 +190,22 @@ def fill_banded(m: PSMatrix, halfwidth: int, fn,
     return m.with_data(col_ids, blocks)
 
 
-def banded(dim: int, halfwidth: int, fn, *, bs: int, grid: ProcessGrid,
-           dtype=None, threshold: float = 0.0) -> PSMatrix:
+def banded(dim: int, halfwidth: int, fn, *, bs: int,
+           grid: ProcessGrid | None = None, dtype=None,
+           threshold: float = 0.0) -> PSMatrix:
     """Convenience wrapper: empty + :func:`fill_banded`."""
     return fill_banded(empty(dim, bs=bs, dtype=dtype, grid=grid),
                        halfwidth, fn, threshold=threshold)
 
 
-def from_dense(dense, *, bs: int, grid: ProcessGrid, k: int | None = None,
-               dtype=None, threshold: float = 0.0) -> PSMatrix:
+def from_dense(dense, *, bs: int, grid: ProcessGrid | None = None,
+               k: int | None = None, dtype=None,
+               threshold: float = 0.0) -> PSMatrix:
     """Dense (numpy array or tensor) -> PSMatrix, blocked on the grid's
     device: the entries with |x| > threshold, nonzero blocks packed in
     ascending col order, at capacity the larger of ``k`` and the
     fullest row."""
+    grid = grid or global_grid()
     if not isinstance(dense, torch.Tensor):
         dense = torch.from_numpy(np.array(dense))
     m = empty(dense.shape[0], bs=bs, k=k, dtype=dtype or dense.dtype,
@@ -251,16 +251,12 @@ def to_dense(m: PSMatrix) -> torch.Tensor:
 
 def to_triplets(m: PSMatrix):
     """PSMatrix -> (rows, cols, vals) numpy triplets of the stored
-    nonzeros inside ``dim``."""
-    cid = m.col_ids.cpu().numpy()
-    blk = m.blocks.cpu().numpy()
-    bs = m.bs
-    pp, rr, kk, ii, jj = np.nonzero(blk != 0)
-    rows = rr * bs + ii
-    cols = cid[pp, rr, kk] * bs + jj
-    vals = blk[pp, rr, kk, ii, jj]
-    keep = (rows < m.dim) & (cols < m.dim)
-    return rows[keep], cols[keep], vals[keep]
+    nonzeros inside ``dim``, in the order of the stored entries (panel,
+    block row, slot, row and column inside the block), as the
+    reference's.  The entries are found on the matrix's device; only
+    the triplets cross to the host."""
+    rows, cols, vals = bell.to_triplets(m.col_ids, m.blocks, m.dim, m.dim)
+    return rows.cpu().numpy(), cols.cpu().numpy(), vals.cpu().numpy()
 
 
 def from_reference_arrays(col_ids, blocks, dim: int, bs: int,

@@ -106,3 +106,18 @@ def to_reference(m):
     grid = RGrid(1, 1, 1)
     return RPM.PSMatrix(*RPM._shard(grid, *PPM.to_numpy(m)), m.dim, m.bs,
                         grid)
+
+
+def port_matrix_ps(jax_matrix_ps, device="cpu"):
+    """The JAX package's ``Matrix_ps`` carried across: its col_ids,
+    blocks, dim and bs as numpy, through ``pmatrix.from_reference_arrays``,
+    as a port ``Matrix_ps`` with the same embedding state."""
+    import ntpoly_tpu_torch as pnt
+    from ntpoly_tpu_torch.parallel import pmatrix as PPM
+    from ntpoly_tpu_torch.parallel.grid import ProcessGrid
+    m = jax_matrix_ps._m
+    out = pnt.Matrix_ps(PPM.from_reference_arrays(
+        np.asarray(m.col_ids), np.asarray(m.blocks), m.dim, m.bs,
+        ProcessGrid(device=device)))
+    out._embedded, out._cdim = jax_matrix_ps._embedded, jax_matrix_ps._cdim
+    return out

@@ -154,10 +154,15 @@ def test_deferred_band_violation_raises(grids, fresh_jit, monkeypatch):
 
 
 def test_matmul_refuses_unported_methods(grids):
-    _, pm = chain(96, 8, grids)
+    """The reference's XLA tiers, once refused, now run in plain torch:
+    each equals the reference's tier slot for slot, and an unknown
+    method is still refused."""
+    rm, pm = chain(96, 8, grids)
     for method in ("acc", "cand", "dense"):
-        with pytest.raises(ValueError, match="not ported"):
-            PA.matmul(pm, pm, method=method)
+        same(RA.matmul(rm, rm, threshold=1e-6, method=method),
+             PA.matmul(pm, pm, threshold=1e-6, method=method))
+    with pytest.raises(ValueError, match="not in"):
+        PA.matmul(pm, pm, method="summa")
 
 
 @pytest.mark.parametrize("on_overflow", ["grow", "truncate"])

@@ -19,14 +19,26 @@ def port_sources():
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port, and chip_smoke.py, import without JAX
-    or the JAX package."""
+    """Every module of the port (the API, I/O, maps, the native loader
+    and the examples among them), and chip_smoke.py, import without JAX
+    or the JAX package, and build nothing."""
     code = ("import importlib, pkgutil, sys, ntpoly_tpu_torch\n"
             "for mod in pkgutil.walk_packages(ntpoly_tpu_torch.__path__,\n"
             "                                 'ntpoly_tpu_torch.'):\n"
             "    importlib.import_module(mod.name)\n"
             "import chip_smoke\n"
             "assert 'ntpoly_tpu_torch.solvers.trigonometry' in sys.modules\n"
+            "for name in ('api', 'io.matrix_market', 'io.binary',\n"
+            "             'utils.maps', 'native', 'core.lmatrix',\n"
+            "             'profiling.api', 'examples.complex_matrix',\n"
+            "             'examples.graph_theory', 'examples.hydrogen_atom',\n"
+            "             'examples.matrix_maps', 'examples.overlap_matrix',\n"
+            "             'examples.premade_matrix',\n"
+            "             'examples.premade_generate'):\n"
+            "    assert 'ntpoly_tpu_torch.' + name in sys.modules, name\n"
+            "from ntpoly_tpu_torch import native\n"
+            "from ntpoly_tpu_torch.ops import _cuda\n"
+            "assert native._lib is None and _cuda._lib is None\n"
             "bad = [m for m in sys.modules if m == 'jax'\n"
             "       or m.startswith(('jax.', 'ntpoly_tpu.'))\n"
             "       or m == 'ntpoly_tpu']\n"
