@@ -147,13 +147,31 @@ Phases, one line each with its seconds:
    on the card (`api.EXAMPLE_BARS`); and the PremadeMatrix workflow at
    2048 rows, f64, on the card against the CPU (densities within 1e-12
    relative).
+13. mesh: the multi-device layer (parallel/dist.py, the sharded
+   PSMatrix, the 3D SUMMA).  (a) the flagship at 'high' on a 1 x 1 x 1
+   grid inside a one-rank world (nccl): iterations, energy, mu and D
+   slot for slot equal to the same solve on the default grid and to
+   phase 8's, both wall times printed; (b) a world of four ranks
+   spawned on the one card (``parallel/launch.py``, gloo, device
+   cuda:0, every collective staged through host memory and listed),
+   grid 2 x 2 x 1, the flagship's H at 2^18 rows: TRS4 at 'highest'
+   (the kernel chosen per multiply, the capacity grown: ``mesh_params``)
+   with the iterations of the 1 x 1 x 1 solve of the same H on the
+   card, the energy within 1e-6 of it, the certificates of phase 8,
+   equal scalars on every rank, a 2-iteration solve with each band and
+   general product held against its plain version inside the ranks,
+   and D written collectively as binary and read back on the same grid,
+   tile for tile; (c) the same with eight ranks on 2 x 2 x 2 at 2^16
+   rows (the slices' split-k and merge).  A rank that fails fails the
+   phase.
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
 general kernels in the card's TRS4 solves of phases 7 and 8 at the
 flagship's 'high', in phase 9's ISQ and timed solves and in the timed
-solves of phases 10 and 11, and in phase 12's calls through the API
-(the `kernels` line reports their sum), the split pass in those
+solves of phases 10 and 11, in phase 12's calls through the API and in
+phase 13's timed solves (every rank's; the `kernels` line reports
+their sum), the split pass in those
 solves, the stream and window kernels in the low-K profile of phase 5,
 the uniform kernel
 in the round-5 profile of phase 6.  The band, window and uniform
@@ -178,10 +196,12 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1145,6 +1165,7 @@ def phase_flagship():
             raise AssertionError("the flagship solve never launched the "
                                  "band kernel")
         result[precision] = (wall, counts)
+        FLAGSHIP_HIGH.setdefault(precision, (n, energy, mu))
     if not result["high"][1]["split_bf16"]:
         raise AssertionError("the flagship solve at 'high' never launched "
                              "the split pass")
@@ -1740,6 +1761,222 @@ def phase_api(errs):
     return counts
 
 
+# phase mesh: the worlds (grid, rows), the ranks' threads, each world's
+# time limit (s), and the flagship's 'high' solve of phase flagship
+MESH_WORLDS = {"b": ((2, 2, 1), 1 << 18), "c": ((2, 2, 2), 1 << 16)}
+MESH_THREADS = {4: 2, 8: 1}
+MESH_TIMEOUT = 420.0
+
+
+def mesh_params():
+    """The worlds' TRS4 settings: the flagship's at 'highest', but with
+    the kernel chosen per multiply and the capacity grown to each
+    product's need.  On a grid of several panels the gathered row panel
+    of A holds EMPTY gaps between the panels' slots, which the band plan
+    refuses: 'pallas_band' raises there, and the general kernel at the
+    flagship's pinned k_out 5 keeps the 5 lowest of a row's 9 candidate
+    columns before the threshold flush (ROADMAP Queue C)."""
+    params = flagship_params(None, "pallas", "highest")
+    params.on_overflow = "grow"
+    return params
+FLAGSHIP_HIGH: dict = {}
+
+
+def _grid_system(dim: int, bs: int, grid):
+    """The flagship's H (gapped chain, half-width 16, f32) and identity
+    ISQ on ``grid``."""
+    h = PM.banded(dim, trs4_tiers.HALFWIDTH, gapped_fn, bs=bs, grid=grid,
+                  dtype=torch.float32)
+    return h, PM.identity(dim, bs=bs, grid=grid, dtype=torch.float32)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_rank(workdir: str, shape, dim: int, device: str, bs: int = 128,
+              hold: bool = True) -> None:
+    """One rank of phase mesh's worlds: the flagship's TRS4 at 'highest'
+    on a rows x cols x slices grid of ``dim`` rows, timed after a
+    2-iteration warm-up, with its launches counted; its certificates;
+    a 2-iteration solve with every band and general product held
+    against its plain version (``_held_on_path``, not counted); D
+    written collectively as binary and read back on the same grid, tile
+    for tile.  Writes rank{r}.json under ``workdir``."""
+    from ntpoly_tpu_torch.io import binary
+    from ntpoly_tpu_torch.parallel import algebra as alg
+    from ntpoly_tpu_torch.parallel import dist
+    from ntpoly_tpu_torch.profiling.api import same_slots
+    me = dist.process_index()
+    grid = ProcessGrid(*shape, device=device)
+    h, isq = _grid_system(dim, bs, grid)
+    nel = dim / 2
+    params = mesh_params()
+    warm = params.copy()
+    warm.max_iterations = 2
+    density.trs4(h, isq, nel, warm)
+    _sync(device)
+    grid.group("all").barrier()
+    t0 = time.perf_counter()
+    rho, energy, mu, n, counts = solve(h, isq, nel, params)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    # with the overlap I, the certificates' products choose their kernel
+    # per call, as the solve's do
+    inv = purity_invariants(rho, h, nel, params.threshold, s=isq)
+    held, errs = {}, dict.fromkeys(KERNELS, 0.0)
+    if hold:
+        with _held_on_path(errs, held):
+            density.trs4(h, isq, nel, warm)
+    path = str(Path(workdir) / "d.bin")
+    t0 = time.perf_counter()
+    binary.write(rho, path)
+    t_write = time.perf_counter() - t0
+    ref = alg.filter_small(rho, 0.0)        # the stored nonzeros, packed
+    t0 = time.perf_counter()
+    back = binary.read(path, bs=bs, grid=grid, k=ref.k,
+                       dtype=torch.float32)
+    t_read = time.perf_counter() - t0
+    out = dict(rank=me, iterations=n, energy=repr(energy), mu=repr(mu),
+               wall=wall, invariants=inv, launches=counts,
+               held=sorted(held.values()), errs=errs,
+               write_s=t_write, read_s=t_read, file_bytes=os.path.getsize(
+                   path), same=bool(same_slots(back, ref)),
+               staged=sorted(dist.staged), nnz=int(rho.nnz))
+    (Path(workdir) / f"rank{me}.json").write_text(json.dumps(out))
+
+
+def mesh_one_rank():
+    """(a) The flagship at 'high' on a 1 x 1 x 1 grid inside a one-rank
+    world (nccl): iterations, energy, mu and D slot for slot equal to
+    the same solve on the default grid, which equals phase flagship's.
+    -> the world solve's launches."""
+    import tempfile
+    from ntpoly_tpu_torch.parallel import dist
+    from ntpoly_tpu_torch.profiling.api import same_slots
+    config = trs4_tiers.CONFIGS["flagship"]
+    dim, bs, nel = config["dim"], config["bs"], config["dim"] / 2
+    params = flagship_params(config["k_out"], "pallas_band", "high")
+    warm = params.copy()
+    warm.max_iterations = 2
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        for where in ("default", "world"):
+            if where == "world":
+                dist.initialize("nccl", init_method=f"file://{work}/store",
+                                rank=0, world_size=1, timeout=300)
+                grid = ProcessGrid(1, 1, 1, device="cuda:0")
+            else:
+                grid = ProcessGrid(device="cuda")
+            try:
+                h, isq = _grid_system(dim, bs, grid)
+                density.trs4(h, isq, nel, warm)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rho, energy, mu, n, counts = solve(h, isq, nel, params)
+                torch.cuda.synchronize()
+                runs[where] = (rho, energy, mu, n, counts,
+                               time.perf_counter() - t0)
+                del h, isq
+            finally:
+                if where == "world":
+                    dist.shutdown()
+    (r0, e0, m0, n0, _, t_default), (r1, e1, m1, n1, c1, t_world) = (
+        runs["default"], runs["world"])
+    print(f"  (a) 1 x 1 x 1 in a one-rank world: {n1} iterations, "
+          f"{t_world:.3f} s wall; default grid {n0} iterations, "
+          f"{t_default:.3f} s; energy {e1!r} / {e0!r}, mu {m1!r} / "
+          f"{m0!r}; launches {c1}")
+    same = (n0, e0, m0) == (n1, e1, m1) and bool(same_slots(r0, r1))
+    flag = FLAGSHIP_HIGH.get("high")
+    print(f"  (a) bit for bit with the default grid: {same}; phase "
+          f"flagship's 'high' solve: {flag}")
+    if not same or (n0, e0, m0) != flag:
+        raise AssertionError("the 1 x 1 x 1 grid in a world is not bit for "
+                             "bit the default grid's solve")
+    return c1
+
+
+def mesh_world(tag: str, errs):
+    """(b)/(c): a world of ranks spawned on the one card (gloo, device
+    cuda:0), each running :func:`mesh_rank`; held to the 1 x 1 x 1
+    solve of the same H on the card: equal iterations, energy within
+    1e-6, the certificates of PERF.md section 2, equal scalars on every
+    rank, D read back tile for tile.  -> the ranks' summed launches."""
+    import tempfile
+    from ntpoly_tpu_torch.parallel import launch
+    shape, dim = MESH_WORLDS[tag]
+    size = int(np.prod(shape))
+    bs = trs4_tiers.CONFIGS["flagship"]["bs"]
+    params = mesh_params()
+    h, isq = _grid_system(dim, bs, ProcessGrid(device="cuda"))
+    t0 = time.perf_counter()
+    _, e1, _, n1, _ = solve(h, isq, dim / 2, params)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    del h, isq
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        launch.run("chip_smoke:mesh_rank", size,
+                   args=(work, list(shape), dim, "cuda:0", bs),
+                   workdir=work, timeout=MESH_TIMEOUT, backend="gloo",
+                   threads=MESH_THREADS[size])
+        t_world = time.perf_counter() - t0
+        ranks = [json.loads((Path(work) / f"rank{r}.json").read_text())
+                 for r in range(size)]
+    r0 = ranks[0]
+    inv = r0["invariants"]
+    what = f"({tag}) {'x'.join(map(str, shape))}, {dim} rows"
+    print(f"  {what}: {r0['iterations']} iterations in {r0['wall']:.3f} s "
+          f"(rank 0; ranks {[round(r['wall'], 3) for r in ranks]}), the "
+          f"world {t_world:.1f} s with start-up; 1 x 1 x 1 on the card "
+          f"{n1} iterations in {t_one:.3f} s; energy {r0['energy']} "
+          f"against {e1!r}; certificates {json.dumps(inv)}")
+    print(f"  {what}: D {r0['file_bytes']} bytes written in "
+          f"{max(r['write_s'] for r in ranks):.2f} s, read back in "
+          f"{max(r['read_s'] for r in ranks):.2f} s, tile for tile "
+          f"{[r['same'] for r in ranks]}; collectives staged through the "
+          f"host (gloo): {r0['staged']}")
+    for line in r0["held"]:
+        print(f"  {what} held on rank 0: {line}")
+    energy = float(r0["energy"])
+    ok = (all((r["iterations"], r["energy"], r["mu"], r["invariants"])
+              == (r0["iterations"], r0["energy"], r0["mu"], inv)
+              for r in ranks)
+          and r0["iterations"] == n1
+          and abs(energy - e1) <= 1e-6 * abs(e1)
+          and inv["idempotency_rel"] <= 1e-5
+          and inv["commutator_rel"] <= 5e-5
+          and inv["trace_abs_err"] / (dim / 2) <= 1e-6
+          and all(r["same"] and r["held"] for r in ranks))
+    if not ok:
+        raise AssertionError(f"phase mesh {what} out of bounds")
+    for r in ranks:
+        for k, v in r["errs"].items():
+            errs[k] = max(errs[k], v)
+    counts = {k: sum(r["launches"][k] for r in ranks) for k in PATH_KERNELS}
+    print(f"  {what}: launches over the ranks {counts}")
+    if not counts["spgemm_band"]:
+        raise AssertionError(f"the {what} solve never launched the band "
+                             "kernel")
+    return counts
+
+
+def phase_mesh(errs):
+    """The multi-device layer: (a) the flagship on a 1 x 1 x 1 grid in a
+    one-rank world, bit for bit the default grid's; (b) TRS4 of the
+    flagship's H at 2^18 rows in a world of four ranks on the card
+    (2 x 2 x 1); (c) at 2^16 rows in a world of eight (2 x 2 x 2, the
+    slices' split-k and merge).  -> the launches of the three."""
+    one = mesh_one_rank()
+    worlds = [mesh_world(tag, errs) for tag in MESH_WORLDS]
+    counts = {k: one[k] + sum(w[k] for w in worlds) for k in PATH_KERNELS}
+    print(f"  launches on the path: {counts}")
+    return counts
+
+
 def main() -> int:
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -1767,14 +2004,15 @@ def main() -> int:
     funcs = run("functions", phase_functions, errs)
     anal = run("analysis", phase_analysis, errs)
     surface = run("api", phase_api, errs)
+    mesh = run("mesh", phase_mesh, errs)
     counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k] + anal[k]
-              + surface[k] for k in PATH_KERNELS}
+              + surface[k] + mesh[k] for k in PATH_KERNELS}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
     print(f"launches on each kernel's path: {counts} (parity solve "
           f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
           f"functions path {funcs}, analysis path {anal}, api path "
-          f"{surface}, low-K profile "
+          f"{surface}, mesh path {mesh}, low-K profile "
           f"{low}, round-5 low-K profile {low_r5})")
     for name, n in counts.items():
         if not n:

@@ -36,6 +36,7 @@ from .core.lmatrix import LocalMatrix as _LocalMatrix
 from .io import binary as _bin
 from .io import matrix_market as _mm
 from .parallel import algebra as _alg
+from .parallel import dist as _dist
 from .parallel import grid as _grid
 from .parallel import pmatrix as _pm
 from .solvers import (analysis as _analysis, chebyshev as _cheb,
@@ -62,9 +63,16 @@ def ConstructGlobalProcessGrid(process_rows=None, process_columns=None,
                                process_slices=1, *args, device=None):
     """reference ConstructProcessGrid (ProcessGridModule.F90:84-97).
 
-    One device: the grid is 1 x 1 x 1 on ``device`` (the CUDA card
-    unless named); any other shape raises the grid's error (the
-    multi-device grid is ROADMAP Queue A item 8)."""
+    The grid over the world's ranks (``parallel/dist.py``), rows x
+    columns x slices with the reference's rules, auto-sized when rows
+    or columns are not given; without a world it is 1 x 1 x 1.  Matrices
+    live on ``device``: ``cuda:{LOCAL_RANK}`` in a world, the CUDA card
+    without one, unless named.  Collective in a world.  A process
+    started by ``torchrun`` (``WORLD_SIZE`` in its environment) joins
+    its world here if it has not yet (``dist.initialize``)."""
+    import os
+    if "WORLD_SIZE" in os.environ and not torch.distributed.is_initialized():
+        _dist.initialize()
     _grid.construct_global_grid(process_rows, process_columns,
                                 process_slices, device=device)
 
@@ -74,7 +82,7 @@ def DestructGlobalProcessGrid():
 
 
 def GetGlobalIsRoot() -> bool:
-    return True        # one process drives the device
+    return _dist.process_index() == 0
 
 
 def GetGlobalNumRows() -> int:
@@ -90,15 +98,15 @@ def GetGlobalNumSlices() -> int:
 
 
 def GetGlobalMyRow() -> int:
-    return 0
+    return _grid.global_grid().my_row
 
 
 def GetGlobalMyColumn() -> int:
-    return 0
+    return _grid.global_grid().my_col
 
 
 def GetGlobalMySlice() -> int:
-    return 0
+    return _grid.global_grid().my_slice
 
 
 def _write_grid(g):
@@ -117,17 +125,17 @@ def WriteGridInfo():
 
 class ProcessGrid(_grid.ProcessGrid):
     """Custom (non-global) grid; reference
-    Source/CPlusPlus/ProcessGrid.h.  One process drives it, so
-    My{Row,Column,Slice} are 0."""
+    Source/CPlusPlus/ProcessGrid.h.  My{Row,Column,Slice} are this
+    rank's coordinates."""
 
     def GetMyRow(self) -> int:
-        return 0
+        return self.my_row
 
     def GetMyColumn(self) -> int:
-        return 0
+        return self.my_col
 
     def GetMySlice(self) -> int:
-        return 0
+        return self.my_slice
 
     def GetNumRows(self) -> int:
         return self.rows
@@ -473,14 +481,16 @@ class Matrix_ps:
     def WriteToMatrixMarket(self, file_name: str):
         if self._embedded:
             r, c, v = self._triplets()
-            _mm.write_triplets(file_name, r, c, v, self._cdim)
+            if GetGlobalIsRoot():
+                _mm.write_triplets(file_name, r, c, v, self._cdim)
             return
         _mm.write(self._m, file_name)
 
     def WriteToBinary(self, file_name: str):
         if self._embedded:
             r, c, v = self._triplets()
-            _bin.write_triplets(file_name, r, c, v, self._cdim)
+            if GetGlobalIsRoot():
+                _bin.write_triplets(file_name, r, c, v, self._cdim)
             return
         _bin.write(self._m, file_name)
 
@@ -1186,7 +1196,7 @@ class MatrixMapper:
     def GetSliceInfo(mat):
         """(num_slices, my_slice) of the matrix's grid (reference
         Source/CPlusPlus/MatrixMapper.h:73-74)."""
-        return mat._m.grid.slices, 0
+        return mat._m.grid.slices, mat._m.grid.my_slice
 
 
 class LoadBalancer:

@@ -6,9 +6,15 @@ module run as
 
 with the reference example's arguments and one more, ``--device``
 (the CUDA card by default; ``--device cpu`` runs the plain versions of
-the kernels).  The process-grid arguments stay: the port runs on one
-device, so any value but 1 raises the grid's error.  ``main(argv)``
-runs an example in-process.
+the kernels).  The process-grid arguments are the reference's: run
+in a world of rows x columns x slices ranks, for example
+
+    torchrun --nproc-per-node 4 -m ntpoly_tpu_torch.examples.<name> \
+        ... --process_rows 2 --process_columns 2
+
+(``gloo`` when the ranks share a card or run on the CPU:
+``NTPOLY_BACKEND=gloo``); without a world any value but 1 raises the
+grid's error.  ``main(argv)`` runs an example in-process.
 """
 import argparse
 

@@ -5,15 +5,23 @@ Counterpart of ``ntpoly_tpu/io/binary.py`` for one process, with its
 layout exactly, so that either package reads the other's files: a
 header {magic ``NTPX``, complex flag, rows, cols, total nnz} followed by
 packed little-endian (row <i4, col <i4, value <f8 | <c16) records, in
-``to_triplets``' order.  The collective multi-process write waits for
-the multi-device grid (ROADMAP Queue A item 8).
+``to_triplets``' order.  On a grid of several ranks the write is
+collective, as the reference's (WriteMatrixToBinary.f90): each rank
+packs the entries its tiles own (slice 0), the counts are gathered and
+exclusive-summed into record offsets, rank 0 writes the header and
+sizes the file, and after a barrier every rank writes its records at
+its offset (a shared file system, as MPI-IO needs).  A read on such a
+grid takes rank r's byte range of the records and routes them to their
+owners ('distributed' fill).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import default_complex_dtype, default_real_dtype
 from ..parallel import pmatrix as PM
+from ..parallel.grid import global_grid
 from ..utils.errors import IOFormatError
 
 MAGIC = 0x4E545058        # "NTPX"
@@ -29,8 +37,33 @@ def _triplet_dtype(is_complex: bool):
 
 
 def write(mat: PM.PSMatrix, file_name: str):
-    r, c, v = PM.to_triplets(mat)
-    write_triplets(file_name, r, c, v, mat.dim)
+    """Write the checkpoint (collective on a grid of several ranks)."""
+    if mat.grid.n_devices == 1:
+        r, c, v = PM.to_triplets(mat)
+        write_triplets(file_name, r, c, v, mat.dim)
+        return
+    r, c, v = PM.to_triplets(mat, local=True)
+    is_complex = mat.dtype.is_complex
+    dt = _triplet_dtype(is_complex)
+    grp = mat.grid.group("all")
+    counts = torch.cat(grp.all_gather(torch.tensor([len(v)]))).tolist()
+    me = grp.index
+    if me == 0:
+        header = np.zeros(1, _HEADER_DTYPE)
+        header["magic"], header["is_complex"] = MAGIC, is_complex
+        header["rows"] = header["cols"] = mat.dim
+        header["nnz"] = sum(counts)
+        with open(file_name, "wb") as f:
+            header.tofile(f)
+            # sized first, so that every rank writes inside the file
+            f.truncate(_HEADER_DTYPE.itemsize + sum(counts) * dt.itemsize)
+    grp.barrier()
+    recs = np.empty(len(v), dt)
+    recs["row"], recs["col"], recs["val"] = r, c, v
+    with open(file_name, "r+b") as f:
+        f.seek(_HEADER_DTYPE.itemsize + sum(counts[:me]) * dt.itemsize)
+        f.write(recs.tobytes())
+    grp.barrier()
 
 
 def write_triplets(file_name: str, r, c, v, dim: int):
@@ -86,9 +119,19 @@ def read_triplets_range(file_name: str, rank: int, n_ranks: int):
 
 def read(file_name: str, *, bs: int, grid=None, k: int | None = None,
          dtype=None) -> PM.PSMatrix:
-    i, j, v, dim = read_triplets(file_name)
+    """A checkpoint -> PSMatrix on ``grid`` (the global grid unless
+    given); on several ranks each reads its byte range (collective)."""
+    grid = grid or global_grid()
+    mode = "replicated"
+    if grid.n_devices > 1:
+        g = grid.group("all")
+        i, j, v, dim = read_triplets_range(file_name, g.index, g.size)
+        mode = "distributed"
+    else:
+        i, j, v, dim = read_triplets(file_name)
     if dtype is None:
-        dtype = default_complex_dtype() if np.iscomplexobj(v) \
-            else default_real_dtype()
+        with open(file_name, "rb") as f:
+            cplx = bool(_read_header(f, file_name)["is_complex"])
+        dtype = default_complex_dtype() if cplx else default_real_dtype()
     m = PM.empty(dim, bs=bs, k=k, dtype=dtype, grid=grid)
-    return PM.fill_from_triplets(m, i, j, v)
+    return PM.fill_from_triplets(m, i, j, v, mode=mode)

@@ -14,18 +14,24 @@ line per stored entry in ``to_triplets``' order with values as %.16g.
 
 The numpy parser and formatter here are the plain versions of the
 native ones; the package reads and writes through the native code.
-The collective multi-process reads and writes of the reference wait
-for the multi-device grid (ROADMAP Queue A item 8).
+On a grid of several ranks, reads and writes are collective, as the
+reference's (PSMatrixModule.F90:351-570, WriteToMatrixMarket.f90): a
+read parses rank r's byte range and routes the triplets to their
+owners ('distributed' fill); a write formats each rank's owned entries
+(slice 0), gathers the byte counts, and after rank 0 has written the
+header and sized the file every rank writes its lines at its offset.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import torch
 
 from .. import native
 from ..config import default_complex_dtype, default_real_dtype
 from ..parallel import pmatrix as PM
+from ..parallel.grid import global_grid
 from ..utils.errors import IOFormatError
 
 _FIELDS = {"pattern": native.FIELD_PATTERN, "complex": native.FIELD_COMPLEX}
@@ -184,13 +190,21 @@ def read_triplets_range(file_name: str, rank: int, n_ranks: int):
 
 def read(file_name: str, *, bs: int, grid=None, k: int | None = None,
          dtype=None) -> PM.PSMatrix:
-    """A file -> PSMatrix on ``grid`` (the global grid unless given)."""
-    i, j, v, dim = read_triplets(file_name)
+    """A file -> PSMatrix on ``grid`` (the global grid unless given);
+    on several ranks each parses its byte range (collective)."""
+    grid = grid or global_grid()
+    mode = "replicated"
+    if grid.n_devices > 1:
+        g = grid.group("all")
+        i, j, v, dim = read_triplets_range(file_name, g.index, g.size)
+        mode = "distributed"
+    else:
+        i, j, v, dim = read_triplets(file_name)
     if dtype is None:
-        dtype = default_complex_dtype() if np.iscomplexobj(v) \
-            else default_real_dtype()
+        cplx = read_header(file_name)[2] == "complex"
+        dtype = default_complex_dtype() if cplx else default_real_dtype()
     m = PM.empty(dim, bs=bs, k=k, dtype=dtype, grid=grid)
-    return PM.fill_from_triplets(m, i, j, v)
+    return PM.fill_from_triplets(m, i, j, v, mode=mode)
 
 
 def format_lines_plain(r, c, v) -> bytes:
@@ -207,9 +221,33 @@ def format_lines_plain(r, c, v) -> bytes:
 
 def write(mat: PM.PSMatrix, file_name: str):
     """Write coordinate-general Matrix Market (reference
-    WriteMatrixToMatrixMarket)."""
-    r, c, v = PM.to_triplets(mat)
-    write_triplets(file_name, r, c, v, mat.dim)
+    WriteMatrixToMatrixMarket; collective on several ranks)."""
+    if mat.grid.n_devices == 1:
+        r, c, v = PM.to_triplets(mat)
+        write_triplets(file_name, r, c, v, mat.dim)
+        return
+    r, c, v = PM.to_triplets(mat, local=True)
+    is_complex = mat.dtype.is_complex
+    if is_complex and not np.iscomplexobj(v):
+        v = v.astype(np.complex128)
+    body = native.mm_format(r, c, v) if len(v) else b""
+    grp = mat.grid.group("all")
+    stats = torch.stack(grp.all_gather(torch.tensor([len(v), len(body)])))
+    nnz, sizes = stats[:, 0].tolist(), stats[:, 1].tolist()
+    field = "complex" if is_complex else "real"
+    header = (f"%%MatrixMarket matrix coordinate {field} general\n"
+              f"{mat.dim} {mat.dim} {sum(nnz)}\n").encode()
+    me = grp.index
+    if me == 0:
+        with open(file_name, "wb") as f:
+            f.write(header)
+            # sized first, so that every rank writes inside the file
+            f.truncate(len(header) + sum(sizes))
+    grp.barrier()
+    with open(file_name, "r+b") as f:
+        f.seek(len(header) + sum(sizes[:me]))
+        f.write(body)
+    grp.barrier()
 
 
 def write_triplets(file_name: str, r, c, v, dim: int):

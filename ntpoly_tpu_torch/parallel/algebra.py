@@ -1,15 +1,30 @@
-"""Algebra on PSMatrix (one device).
+"""Algebra on PSMatrix: the 3D SUMMA and the grid's reductions.
 
-Counterpart of ``ntpoly_tpu/parallel/algebra.py`` on the 1 x 1 x 1 grid:
-the SpGEMM with its capacity policy (grow, trim, warn, deferred
-checks), the fused N-operand increment, and the scalar reductions the
-solvers read.  The reference's SUMMA collectives and its row-chunked
-variants (``_compact_rows``, the chunked ``dot_pair`` and
-``increment_n``), which bound the TPU's 16 GB of memory, are not needed
-on one 80 GB card and are left out.
+Counterpart of ``ntpoly_tpu/parallel/algebra.py``: the SpGEMM with its
+capacity policy (grow, trim, warn, deferred checks), the fused N-operand
+increment, and the scalar reductions the solvers read.  Every rank runs
+the same calls on its own tile (SPMD); the reference's mesh collectives
+become the grid's process groups (``grid.group``):
 
-The working threshold of a multiply is the caller's threshold (one
-slice), as in the reference.
+    A's block rows over 'cols'   -> all-gather of A's tiles (its row panel)
+    B's block cols over 'rows'   -> all-gather of B's tiles (its col panel)
+    slice split-k                -> slot masking (col % S == s), gather
+                                    over 'slices' + k-way threshold merge
+    stats pmax                   -> one MAX all-reduce over the grid
+
+With S slices the local multiplies prune at threshold / (S * 1000) and
+the full threshold is applied on the slice sum (reference
+MatrixMultiply.f90:23-29).  Reductions sum over the rows x cols ranks of
+a slice only (slices are replicas), gathering every rank's partial and
+adding in rank order, so that every rank holds the same bits; vectors
+(column sums, the diagonal, ``spmm``) come back replicated.  On the
+1 x 1 x 1 grid every collective is the identity.  Host decisions (the
+'grow' policy, deferred checks, the solvers' monitors) read only such
+grid-wide values, so that every rank takes the same branch.
+
+The reference's row-chunked variants (``_compact_rows``, the chunked
+``dot_pair`` and ``increment_n``), which bound the TPU's 16 GB of
+memory, are not needed on an 80 GB card and are left out.
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ from ..config import EMPTY
 from ..core import bell
 from ..ops import spgemm as sp
 from ..utils.errors import ComplexSupportError, NTPolyError
+from ..utils.logging import logger
 from .pmatrix import PSMatrix
 
 # ----------------------------------------------------------------------------
@@ -40,17 +56,22 @@ def _policy_get(attr):
 def capacity_policy(k_out: int | None = None,
                     on_overflow: str | None = None,
                     precision: str | None = None,
-                    method: str | None = None, defer: bool = False):
+                    method: str | None = None, defer: bool = False,
+                    verbose: bool = False):
     """Ambient capacity defaults for matmul/increment.
 
     Solvers install this from SolverParameters.  ``defer``: overflow and
     band-violation checks in non-growing modes are queued as device
     scalars instead of read back per operation, and materialized in ONE
-    sync by :func:`drain_deferred_checks` when the policy exits."""
-    names = ("k_out", "on_overflow", "precision", "method", "defer")
+    sync by :func:`drain_deferred_checks` when the policy exits.
+    ``verbose``: a multiply that grows past the pinned ``k_out`` writes
+    "capacity regrown" to the YAML log, as the reference's chunked
+    solves (``run_chunked``) do when their pin overflows."""
+    names = ("k_out", "on_overflow", "precision", "method", "defer",
+             "verbose")
     prev = tuple(_policy_get(n) for n in names)
     for n, v in zip(names, (k_out, on_overflow, precision, method,
-                            defer)):
+                            defer, verbose)):
         setattr(_policy, n, v)
     try:
         yield
@@ -103,53 +124,114 @@ def drain_deferred_checks():
             "under a deferring capacity_policy)")
 
 
+__all__ = [
+    "matmul", "increment", "scale", "trace", "dot",
+    "norm", "grand_sum",
+    "pairwise_multiply", "filter_small", "transpose", "conjugate",
+    "diagonal_scale", "measure_asymmetry", "symmetrize",
+    "similarity_transform", "column_sums", "gershgorin_bounds", "spmv",
+    "spmm", "matrix_sigma", "load_balance", "capacity_policy", "fill_bound",
+]
+
+
 # ----------------------------------------------------------------------------
 # SpGEMM
 # ----------------------------------------------------------------------------
 
+def _panels(a: PSMatrix, b: PSMatrix, blocks: bool = True):
+    """(A's row panel [nbr, Pc * KA], its blocks, B's column panel
+    [NB, KB], its blocks): A's tiles gathered over 'cols', side by side
+    as the reference's (algebra.py:195-198), B's over 'rows', stacked.
+    Without ``blocks`` only the col ids are gathered (None for the
+    blocks)."""
+    g = a.grid
+    agc, agb = a.col_ids[0], a.blocks[0] if blocks else None
+    bgc, bgb = b.col_ids[0], b.blocks[0] if blocks else None
+    if g.cols > 1:
+        cols = g.group("cols")
+        agc = torch.stack(cols.all_gather(agc), 1).reshape(a.nbr, -1)
+        if blocks:
+            agb = torch.stack(cols.all_gather(agb), 1).reshape(
+                a.nbr, g.cols * a.k, a.bs, a.bs)
+    if g.rows > 1:
+        rows = g.group("rows")
+        bgc = torch.cat(rows.all_gather(bgc))
+        if blocks:
+            bgb = torch.cat(rows.all_gather(bgb))
+    return agc, agb, bgc, bgb
+
+
+def _gather_slices(g, cc, cb):
+    """Every slice's [nbr, k] product side by side -> [nbr, S * k]."""
+    sl = g.group("slices")
+    nbr, k, bs = cc.shape[0], cc.shape[1], cb.shape[-1]
+    gc = torch.stack(sl.all_gather(cc), 1).reshape(nbr, g.slices * k)
+    gb = torch.stack(sl.all_gather(cb), 1).reshape(
+        nbr, g.slices * k, bs, bs)
+    return gc, gb
+
+
 def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
            method: str, want_fill: bool, precision: str):
-    """The local multiply of the 1 x 1 x 1 grid: returns (cc, cb, stats)
-    with stats = [structural fill, max used slot] as one device tensor."""
-    agc, agb = a.col_ids[0], a.blocks[0]
-    bgc, bgb = b.col_ids[0], b.blocks[0]
+    """The 3D SUMMA (reference ``_summa``, algebra.py:183-279): returns
+    this rank's (cc, cb) and stats = [structural fill, max used slot],
+    the max over the grid, as one device tensor."""
+    g = a.grid
+    S = g.slices
+    wt = threshold / (S * 1000.0) if S > 1 else threshold
+    agc, agb, bgc, bgb = _panels(a, b)
     dev = agc.device
     if want_fill:
         fill = sp.structural_fill(agc, bgc).amax()
     else:
         fill = torch.zeros((), dtype=torch.int32, device=dev)
+    if S > 1:
+        keep = (agc != EMPTY) & (agc % S == g.my_slice)
+        agc = torch.where(keep, agc, EMPTY)
+        agb = agb * keep[..., None, None].to(agb.dtype)
+    c0 = a.col_offset
     # FULL-SPAN band multiply: the band kernel's contiguous output window
     # cannot express a top-k_out-by-rank truncation, so when the capacity
     # is below the product span (ka + kb - 1) the kernel runs at the full
     # span, the threshold flush empties the decayed tails, and
     # bell.compact re-bases to k_out.  The fill stat then reports the
     # filtered need (surviving slots).
-    if method in XLA_TIERS:
-        cc, cb = _xla_tier(method, agc, agb, bgc, bgb, alpha, threshold,
-                           k_out=k_out, nbc_out=a.panel_nb)
-        stats = torch.stack([fill.to(torch.int32),
-                             bell.used_slots(cc).amax().to(torch.int32)])
-        return cc[None], cb[None], stats
-    k_run = k_out
     band = method == "pallas_band"
-    if band:
-        k_run = max(k_out, min(a.panel_nb,
-                               agc.shape[-1] + bgc.shape[-1] - 1))
-    cc, cb, bucnt = sp.spgemm(agc, agb, bgc, bgb, k_out=k_run,
-                              threshold=threshold, alpha=alpha,
-                              precision=precision,
-                              band_mode="force" if band else "auto")
-    if band and k_run > k_out:
-        bad = bucnt.amax() >= EMPTY
-        cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
-        cc, cb = bell.compact(cc, cb, k_out)
-        fill = torch.where(bad, torch.tensor(EMPTY, dtype=torch.int32,
-                                             device=dev), cnt)
-    elif band:
-        fill = torch.maximum(fill, bucnt.amax())
+    compacted = False
+    if method in XLA_TIERS:
+        cc, cb = _xla_tier(method, agc, agb, bgc, bgb, alpha, wt,
+                           k_out=k_out, nbc_out=a.panel_nb, col_offset=c0)
+    else:
+        k_run = k_out
+        if band:
+            k_run = max(k_out, min(a.panel_nb,
+                                   agc.shape[-1] + bgc.shape[-1] - 1))
+        cc, cb, bucnt = sp.spgemm(agc, agb, bgc, bgb, k_out=k_run,
+                                  threshold=wt, alpha=alpha,
+                                  precision=precision,
+                                  band_mode="force" if band else "auto")
+        if band and k_run > k_out:
+            bad = bucnt.amax() >= EMPTY
+            cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
+            cc, cb = bell.compact(cc, cb, k_out)
+            fill = torch.where(bad, torch.tensor(EMPTY, dtype=torch.int32,
+                                                 device=dev), cnt)
+            compacted = True
+        elif band:
+            fill = torch.maximum(fill, bucnt.amax())
+    if S > 1:
+        gc, gb = _gather_slices(g, cc, cb)
+        if compacted:
+            # the merged need, not each slice's filtered count: slices
+            # that each fit k_out can overflow it together
+            mc, _ = bell.merge(gc, gb, gc.shape[-1], threshold)
+            merged = (mc != EMPTY).sum(dim=-1).amax().to(torch.int32)
+            fill = torch.where(fill >= EMPTY, fill,
+                               torch.maximum(fill, merged))
+        cc, cb = bell.merge(gc, gb, k_out, threshold)
     stats = torch.stack([fill.to(torch.int32),
                          bell.used_slots(cc).amax().to(torch.int32)])
-    return cc[None], cb[None], stats
+    return cc[None], cb[None], g.group("all").max(stats)
 
 
 # the reference's XLA tiers, plain torch here (``core/bell.py``)
@@ -158,24 +240,27 @@ METHODS = ("pallas", "pallas_band") + XLA_TIERS
 
 
 def _xla_tier(method, agc, agb, bgc, bgb, alpha, threshold, *, k_out,
-              nbc_out):
+              nbc_out, col_offset):
     if method == "dense":
-        return bell.spgemm_dense(agc, agb, bgc, bgb, col_offset=0,
+        return bell.spgemm_dense(agc, agb, bgc, bgb, col_offset=col_offset,
                                  nbc_out=nbc_out, k_out=k_out,
                                  nbk=bgc.shape[0], threshold=threshold,
                                  alpha=alpha)
     if method == "cand":
-        return bell.spgemm_candidates(agc, agb, bgc, bgb, col_offset=0,
-                                      k_out=k_out, threshold=threshold,
-                                      alpha=alpha)
-    return bell.spgemm(agc, agb, bgc, bgb, col_offset=0, nbc_out=nbc_out,
-                       k_out=k_out, threshold=threshold, alpha=alpha)
+        return bell.spgemm_candidates(agc, agb, bgc, bgb,
+                                      col_offset=col_offset, k_out=k_out,
+                                      threshold=threshold, alpha=alpha)
+    return bell.spgemm(agc, agb, bgc, bgb, col_offset=col_offset,
+                       nbc_out=nbc_out, k_out=k_out, threshold=threshold,
+                       alpha=alpha)
 
 
 def fill_bound(a: PSMatrix, b: PSMatrix) -> int:
     """Exact structural capacity A @ B needs: the largest fill of any
-    row (one host read)."""
-    return int(sp.structural_fill(a.col_ids[0], b.col_ids[0]).amax())
+    row of the product over the grid (one host read; collective)."""
+    agc, _, bgc, _ = _panels(a, b, blocks=False)
+    fill = sp.structural_fill(agc, bgc).amax().reshape(1)
+    return int(a.grid.group("all").max(fill))
 
 
 def _k_bucket(n: int, cap: int) -> int:
@@ -278,6 +363,9 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
                 cb = cb[..., :k_eff, :, :]
             break
         k_out = _k_bucket(need, cap)
+        if _policy_get("verbose") and _policy_get("k_out"):
+            logger.write_comment(f"capacity regrown to {k_out} (fill "
+                                 f"{need})")
     out = PSMatrix(cc, cb, a.dim, a.bs, a.grid)
     if c is not None:
         out = increment(c, out, alpha=beta, beta=1.0, threshold=threshold)
@@ -297,7 +385,7 @@ def _increment_n(mats, coeffs, threshold, k_out: int):
     used = bell.used_slots(cc).amax()
     a = mats[0]
     return (PSMatrix(cc, cb, a.dim, a.bs, a.grid),
-            torch.stack([fill, used]))
+            a.grid.group("all").max(torch.stack([fill, used])))
 
 
 def increment(a: PSMatrix, b: PSMatrix, alpha=1.0, beta=1.0, threshold=0.0,
@@ -346,26 +434,57 @@ def scale(a: PSMatrix, c) -> PSMatrix:
                        a.blocks * torch.as_tensor(c, dtype=a.dtype))
 
 
+def _sum(a: PSMatrix, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the rows x cols ranks of a's slice, added
+    in rank order (the same bits on every rank)."""
+    plane = a.grid.group("plane")
+    if plane.size == 1:
+        return x
+    return plane.sum_ordered(x.reshape(1)).reshape(x.shape)
+
+
+def _sum_pair(a: PSMatrix, p: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) pairs of the rows x cols ranks combined in rank order by
+    two-sums, so that the pair keeps resolving the total to ~eps^2 and
+    every rank holds the same bits."""
+    plane = a.grid.group("plane")
+    if plane.size == 1:
+        return p
+    parts = plane.all_gather(p)
+    hi, lo = parts[0][0], parts[0][1]
+    for q in parts[1:]:
+        s = hi + q[0]
+        t = s - hi
+        err = (hi - (s - t)) + (q[0] - t)
+        hi, lo = s, lo + q[1] + err
+    return torch.stack([hi, lo])
+
+
 def trace(a: PSMatrix) -> torch.Tensor:
-    """Matrix trace (0-d tensor on the device)."""
-    return bell.trace(a.col_ids, a.blocks)
+    """Matrix trace (0-d tensor on the device; collective)."""
+    return _sum(a, bell.trace(a.col_ids, a.blocks, a.row_offset))
 
 
 def dot(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
-    """sum_ij A_ij B_ij (0-d tensor on the device)."""
-    return bell.dot(a.col_ids, a.blocks, b.col_ids, b.blocks)
+    """sum_ij conj(A_ij) B_ij (0-d tensor on the device; collective)."""
+    return _sum(a, bell.dot(a.col_ids, a.blocks, b.col_ids, b.blocks))
+
+
+def grand_sum(a: PSMatrix) -> torch.Tensor:
+    """The sum of every stored value (0-d tensor; collective)."""
+    return _sum(a, bell.grand_sum(a.blocks))
 
 
 def trace_pair(a: PSMatrix) -> torch.Tensor:
     """Compensated trace -> [2] (hi, lo)."""
-    d = bell.trace_blocks(a.col_ids, a.blocks)
-    return bell.comp_sum(torch.diagonal(d, dim1=-2, dim2=-1))
+    d = bell.trace_blocks(a.col_ids, a.blocks, a.row_offset)
+    return _sum_pair(a, bell.comp_sum(torch.diagonal(d, dim1=-2, dim2=-1)))
 
 
 def dot_pair(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
     """Compensated dot -> [2] (hi, lo), resolving the sum to ~n*eps^2."""
     prod = bell.align_mul(a.col_ids, a.blocks, b.col_ids, b.blocks)
-    return bell.comp_sum(prod)
+    return _sum_pair(a, bell.comp_sum(prod))
 
 
 def pairwise_multiply(a: PSMatrix, b: PSMatrix) -> PSMatrix:
@@ -375,16 +494,21 @@ def pairwise_multiply(a: PSMatrix, b: PSMatrix) -> PSMatrix:
     return PSMatrix(cc, cb, a.dim, a.bs, a.grid)
 
 
+def conjugate(a: PSMatrix) -> PSMatrix:
+    return a.conjugate()
+
+
 def diagonal_scale(a: PSMatrix, dvals, side: str = "right") -> PSMatrix:
     """Scale columns ('right': A diag(d)) or rows ('left': diag(d) A) by
-    ``dvals`` (numpy or a tensor, zero-padded to the logical
-    dimension), on A's device."""
+    ``dvals`` (numpy or a tensor over the whole dimension, zero-padded
+    to the logical dimension), on A's device."""
     d = torch.as_tensor(dvals).to(device=a.device, dtype=a.dtype)
     d = torch.nn.functional.pad(d, (0, a.logical_dim - d.shape[0]))
     d = d.reshape(a.nb, a.bs)
     if side == "right":
         b = bell.diagonal_scale(a.col_ids, a.blocks, dvec_cols=d)
     else:
+        d = d[a.row_offset:a.row_offset + a.nbr]
         b = bell.diagonal_scale(a.col_ids, a.blocks, dvec_rows=d)
     return a.with_data(a.col_ids, b)
 
@@ -395,16 +519,33 @@ def host_pair(p) -> float:
     return hi + lo
 
 
+def _rows_sum(a: PSMatrix, x: torch.Tensor, over: str, along: str):
+    """Sum ``x`` over the group ``over`` (in rank order), then gather
+    it along ``along`` into one replicated tensor."""
+    g = a.grid
+    if g.group(over).size > 1:
+        x = g.group(over).sum_ordered(x)
+    if g.group(along).size > 1:
+        x = torch.cat(g.group(along).all_gather(x))
+    return x
+
+
 def column_sums(a: PSMatrix) -> torch.Tensor:
-    """Per-column sums of |v| -> [logical_dim]."""
-    cs = bell.col_abs_sums(a.col_ids[0], a.blocks[0], a.panel_nb)
-    return cs.reshape(a.logical_dim)
+    """Per-column sums of |v| -> [logical_dim], the same on every rank
+    (collective)."""
+    cols = a.col_ids[0]
+    if a.col_offset:
+        cols = torch.where(cols != EMPTY, cols - a.col_offset, EMPTY)
+    cs = bell.col_abs_sums(cols, a.blocks[0], a.panel_nb)
+    return _rows_sum(a, cs, "rows", "cols").reshape(a.logical_dim)
 
 
 def diagonal_values(a: PSMatrix) -> torch.Tensor:
-    """The matrix diagonal -> [logical_dim]."""
-    d = bell.trace_blocks(a.col_ids, a.blocks).sum(dim=0)   # [NB, bs, bs]
-    return torch.diagonal(d, dim1=-2, dim2=-1).reshape(-1)
+    """The matrix diagonal -> [logical_dim], the same on every rank
+    (collective)."""
+    d = bell.trace_blocks(a.col_ids, a.blocks, a.row_offset).sum(dim=0)
+    d = torch.diagonal(d, dim1=-2, dim2=-1).reshape(-1)     # [nbr * bs]
+    return _rows_sum(a, d, "cols", "rows")
 
 
 def gershgorin_bounds(a: PSMatrix):
@@ -422,16 +563,19 @@ def spmv(a: PSMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(a: PSMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for a dense block of vectors X[logical_dim, m]: one
-    (bs, bs) x (bs, m) product per slot, EMPTY slots masked, summed over
-    the slots in A's dtype (full precision: TF32 is off)."""
+    """Y = A @ X for a dense block of vectors X[logical_dim, m], the
+    same on every rank: one (bs, bs) x (bs, m) product per slot, EMPTY
+    slots masked, summed over the slots in A's dtype (full precision:
+    TF32 is off), then over the panels (an ordered sum over 'cols') and
+    gathered over 'rows' (collective)."""
     m = x.shape[-1]
     xb = x.to(a.dtype).reshape(a.nb, a.bs, m)
     valid = a.col_ids != EMPTY
     loc = torch.where(valid, a.col_ids, 0).long()
-    xg = xb[loc] * valid[..., None, None].to(a.dtype)   # [Pc,NB,K,bs,m]
+    xg = xb[loc] * valid[..., None, None].to(a.dtype)   # [1,NBR,K,bs,m]
     y = torch.einsum("prkij,prkjm->rim", a.blocks, xg)
-    return y.reshape(a.logical_dim, m)
+    y = y.reshape(a.nbr * a.bs, m)
+    return _rows_sum(a, y, "cols", "rows")
 
 
 def matrix_sigma(a: PSMatrix) -> torch.Tensor:
@@ -445,12 +589,12 @@ def is_identity(a: PSMatrix) -> bool:
     pc, nbr, k = a.col_ids.shape
     bs = a.bs
     dev = a.device
-    rows = torch.arange(nbr, device=dev)[None, :, None]
+    rows = (torch.arange(nbr, device=dev) + a.row_offset)[None, :, None]
     eye = torch.eye(bs, dtype=a.dtype, device=dev)
     gi = rows[..., None, None] * bs + torch.arange(bs, device=dev)[:, None]
     want = torch.where((a.col_ids == rows)[..., None, None] & (gi < a.dim),
                        eye, 0)
-    return float((a.blocks - want).abs().sum()) == 0.0
+    return float(_sum(a, (a.blocks - want).abs().sum())) == 0.0
 
 
 # ----------------------------------------------------------------------------
@@ -463,43 +607,54 @@ def filter_small(a: PSMatrix, threshold) -> PSMatrix:
     return a.with_data(cc, cb)
 
 
-def _transpose(a: PSMatrix, k_out: int):
-    """A^T at capacity k_out (overflowing rows keep their lowest col
-    ids), and the largest fill of any output row as a device scalar."""
-    pc, nb, k = a.col_ids.shape
+def _transposed_coo(a: PSMatrix):
+    """A^T's blocks as block-COO on their owners (each slice within its
+    own rows x cols ranks, one all-to-all): (local rows, cols, blocks),
+    and the largest fill of any output row as a device scalar."""
     rows, cols, blocks, valid = bell.to_block_coo(
-        a.col_ids.reshape(pc * nb, k),
-        bell.transpose_blocks(a.blocks).reshape(pc * nb, k, a.bs, a.bs))
-    rows = rows % nb                 # every panel lists the same nb rows
-    # output fill per (panel of the old row, new row = old col)
-    pidx = (rows // a.panel_nb).long()
-    counts = torch.zeros((pc, nb + 1), dtype=torch.int32, device=a.device)
-    counts.index_put_((pidx, torch.where(valid, cols, nb).long()),
-                      torch.ones_like(rows), accumulate=True)
-    fill = counts[:, :nb].amax()
-    oc, ob = bell.from_block_coo(
-        torch.where(valid, cols, nb), rows, blocks, valid, nbr=nb,
-        k=k_out, panels=pc, panel_nbc=a.panel_nb)
-    return a.with_data(oc, ob), fill
+        a.col_ids[0], bell.transpose_blocks(a.blocks[0]),
+        row_offset=a.row_offset)
+    idx = torch.nonzero(valid).reshape(-1)
+    new_r, new_c, blocks = cols[idx], rows[idx], blocks[idx]
+    g = a.grid
+    plane = g.group("plane")
+    if plane.size > 1:
+        dest = ((new_r // a.nbr) * g.cols + new_c // a.panel_nb).long()
+        order = torch.argsort(dest, stable=True)
+        counts = torch.bincount(dest, minlength=plane.size).tolist()
+        ij = plane.all_to_all_v(torch.stack([new_r, new_c], -1)[order],
+                                counts)
+        bl = blocks[order]
+        cplx = bl.is_complex()
+        bl = plane.all_to_all_v(torch.view_as_real(bl) if cplx else bl,
+                                counts)
+        blocks = torch.view_as_complex(bl.contiguous()) if cplx else bl
+        new_r, new_c = ij[:, 0], ij[:, 1]
+    new_r = new_r - a.row_offset
+    counts = torch.zeros(a.nbr, dtype=torch.int32, device=a.device)
+    counts.index_put_((new_r.long(),), torch.ones_like(new_r),
+                      accumulate=True)
+    return new_r, new_c, blocks, counts.amax()
 
 
 def transpose(a: PSMatrix, k_out: int | None = None,
               on_overflow: str | None = None) -> PSMatrix:
-    """A^T by a block-COO flip and rebuild; a row of A^T can need more
-    slots than A has, and 'grow' (the default) re-runs at the fill it
-    needs.  Other policies keep the capacity, and overflowing rows keep
-    their lowest col ids."""
+    """A^T by a block-COO flip, an exchange to the new owners and a
+    rebuild; a row of A^T can need more slots than A has, and 'grow'
+    (the default) builds it at the fill it needs.  Other policies keep
+    the capacity, and overflowing rows keep their lowest col ids."""
     cap = a.panel_nb
     k = min(k_out or _policy_get("k_out") or a.k, cap)
     on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
-    while True:
-        out, fill = _transpose(a, k)
-        if on_overflow != "grow" or k >= cap:
-            return out
-        need = int(fill)
-        if need <= k:
-            return out
-        k = _k_bucket(need, cap)
+    rows, cols, blocks, fill = _transposed_coo(a)
+    if on_overflow == "grow" and k < cap:
+        need = int(a.grid.group("all").max(fill.reshape(1)))
+        if need > k:
+            k = _k_bucket(need, cap)
+    oc, ob = bell.from_block_coo(rows, cols, blocks,
+                                 torch.ones_like(rows, dtype=torch.bool),
+                                 nbr=a.nbr, k=k)
+    return a.with_data(oc, ob)
 
 
 def norm(a: PSMatrix) -> torch.Tensor:

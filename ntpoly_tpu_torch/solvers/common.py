@@ -62,7 +62,8 @@ class solver_log:
         self._policy = alg.capacity_policy(
             k_out=self.params.k_out, on_overflow=eager_mode,
             precision=self.params.precision,
-            method=self.params.matmul_method, defer=True)
+            method=self.params.matmul_method, defer=True,
+            verbose=self.params.be_verbose)
         self._policy.__enter__()
         return self
 

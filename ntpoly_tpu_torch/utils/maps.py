@@ -84,7 +84,8 @@ def map_values(mat: PM.PSMatrix, fn) -> PM.PSMatrix:
     reference's jitted ``fn``: here any torch callable."""
     P, NB, K, bs, _ = mat.blocks.shape
     i32 = dict(dtype=torch.int32, device=mat.device)
-    rr = torch.arange(NB, **i32)[None, :, None, None, None]
+    rr = (torch.arange(NB, **i32)
+          + mat.row_offset)[None, :, None, None, None]
     ii = torch.arange(bs, **i32)[None, None, None, :, None]
     jj = torch.arange(bs, **i32)[None, None, None, None, :]
     bj = mat.col_ids[..., None, None]

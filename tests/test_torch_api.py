@@ -16,6 +16,8 @@ twice: embedded, for the same slots (col ids equal, blocks within
 hangs on rounding (ROADMAP Queue C: the TRS4 sigma, the energy
 monitor at the noise floor), the two may stop an iteration apart;
 those cases hold each side to the oracle only (``parity=False``)."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.linalg as sla
@@ -122,9 +124,33 @@ def test_names_match_the_reference():
     assert public <= set(dir(pnt.api))
 
 
-def test_grid_shapes_and_getters():
-    with pytest.raises(pnt.GridError, match="Queue A item 8"):
+def test_grid_shapes_and_getters(tmp_path):
+    """Without a world there is one rank, so a 2 x 2 x 1 grid breaks the
+    reference's rule rows * cols * slices == ranks; in a world of four
+    ranks it is built, its shape getters are the reference's on its
+    2 x 2 x 1 grid, rank 0's coordinates and root flag are the
+    reference's controller's, and rank r sits at (r // 2, r % 2, 0)."""
+    with pytest.raises(pnt.GridError, match="2x2x1 != rank count 1"):
         pnt.ConstructGlobalProcessGrid(2, 2, 1, device="cpu")
+    import json
+    import _torch_mesh
+    from ntpoly_tpu_torch.parallel import launch
+    outs = launch.run("_torch_mesh:api_getters", 4, args=(str(tmp_path),),
+                      workdir=tmp_path, timeout=120,
+                      pythonpath=[Path(_torch_mesh.__file__).parent])
+    rnt.ConstructGlobalProcessGrid(2, 2, 1)
+    ref = [getattr(rnt, f"GetGlobal{n}")() for n in
+           ("IsRoot", "NumRows", "NumColumns", "NumSlices", "MyRow",
+            "MyColumn", "MySlice")]
+    rg = rnt.ProcessGrid(2, 2, 1)
+    ref += [rg.GetNumRows(), rg.GetMyRow(), rg.GetMyColumn(),
+            rg.GetMySlice()]
+    rnt.ConstructGlobalProcessGrid(1, 1, 1)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert ranks[0] == ref == [True, 2, 2, 1, 0, 0, 0, 2, 0, 0, 0]
+    for r, got in enumerate(ranks[1:], 1):
+        rc = [r // 2, r % 2, 0]
+        assert got == [False, 2, 2, 1, *rc, 2, *rc]
     pnt.ConstructGlobalProcessGrid(1, 1, 1, device="cpu")
     got = [getattr(pnt, f"GetGlobal{n}")() for n in
            ("IsRoot", "NumRows", "NumColumns", "NumSlices", "MyRow",

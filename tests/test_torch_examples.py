@@ -162,11 +162,30 @@ def test_overlap_example_readme_input_is_indefinite():
         assert np.sign(np.linalg.eigvalsh(s)[0]) == sign
 
 
-def test_grid_arguments_other_than_one_raise(tmp_path):
-    with pytest.raises(pnt.GridError, match="Queue A item 8"):
-        run_port("hydrogen_atom", ["--grid_points", "16", "--density",
-                                   str(tmp_path / "d.mtx"),
-                                   "--process_rows", "2"])
+def test_grid_arguments_other_than_one_raise(tmp_path, monkeypatch):
+    """Without a world, --process_rows 2 asks for more ranks than there
+    are and raises the grid's error; in a world of two ranks (gloo) the
+    example runs on the 2 x 1 x 1 grid and writes the density that the
+    reference's example writes with --process_rows 2 (the density
+    collectively)."""
+    args = ["--grid_points", "64", "--threshold", "1e-6",
+            "--convergence_threshold", "1e-8", "--process_rows", "2"]
+    with pytest.raises(pnt.GridError, match="2x1x1 != rank count 1"):
+        run_port("hydrogen_atom", args + ["--density",
+                                          str(tmp_path / "d.mtx")])
+    import _torch_mesh
+    from ntpoly_tpu_torch.parallel import launch
+    port = tmp_path / "port.mtx"
+    launch.run("_torch_mesh:example", 2,
+               args=("hydrogen_atom", args + ["--density", str(port),
+                                              "--device", "cpu"]),
+               workdir=tmp_path / "world", timeout=180,
+               pythonpath=[Path(_torch_mesh.__file__).parent])
+    ref = tmp_path / "ref.mtx"
+    run_reference("HydrogenAtom", args + ["--density", str(ref)],
+                  monkeypatch)
+    rnt.ConstructGlobalProcessGrid(1, 1, 1)
+    assert rel(read(port), read(ref)) <= TOL
 
 
 def test_workflow_2048(tmp_path):

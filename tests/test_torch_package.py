@@ -104,11 +104,30 @@ def test_cuda_sources_name_the_kernels_they_replace():
 
 
 def test_grid_is_one_device_with_explicit_device():
-    """One device; the card unless the caller asks for another (no
-    CUDA tensor is made, so this holds without a card)."""
-    from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-    with pytest.raises(ValueError, match="Queue A item 8"):
+    """Without a world the grid is one rank on the card unless the
+    caller asks for another device (no CUDA tensor is made, so this
+    holds without a card), and a larger grid raises; the shape rules for
+    n ranks are the reference's for n devices, shape for shape."""
+    import jax
+    from ntpoly_tpu.parallel.grid import ProcessGrid as RGrid
+    from ntpoly_tpu_torch.parallel.grid import ProcessGrid, grid_shape
+    with pytest.raises(ValueError, match="2x2x1 != rank count 1"):
         ProcessGrid(2, 2, 1, device="cpu")
+    for n in (1, 2, 4, 6, 8):
+        for shape in [(None, None, s) for s in (1, 2, 3, 4)] + [
+                (r, c, s) for r in (1, 2, 3, 4) for c in (1, 2, 4)
+                for s in (1, 2, 4) if r * c * s == n]:
+            try:
+                g = RGrid(shape[0], shape[1], shape[2],
+                          devices=jax.devices()[:n])
+                want = (g.rows, g.cols, g.slices)
+            except ValueError:
+                want = "refused"
+            try:
+                got = grid_shape(*shape, n)
+            except ValueError:
+                got = "refused"
+            assert got == want, (shape, n)
     assert ProcessGrid().device == torch.device("cuda")
     assert ProcessGrid() == ProcessGrid(device="cuda")
     assert ProcessGrid(device="cpu") == ProcessGrid(1, 1, 1, device="cpu")
