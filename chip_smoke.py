@@ -148,22 +148,28 @@ Phases, one line each with its seconds:
    2048 rows, f64, on the card against the CPU (densities within 1e-12
    relative).
 13. mesh: the multi-device layer (parallel/dist.py, the sharded
-   PSMatrix, the 3D SUMMA).  (a) the flagship at 'high' on a 1 x 1 x 1
-   grid inside a one-rank world (nccl): iterations, energy, mu and D
-   slot for slot equal to the same solve on the default grid and to
-   phase 8's, both wall times printed; (b) a world of four ranks
-   spawned on the one card (``parallel/launch.py``, gloo, device
-   cuda:0, every collective staged through host memory and listed),
-   grid 2 x 2 x 1, the flagship's H at 2^18 rows: TRS4 at 'highest'
-   (the kernel chosen per multiply, the capacity grown: ``mesh_params``)
-   with the iterations of the 1 x 1 x 1 solve of the same H on the
-   card, the energy within 1e-6 of it, the certificates of phase 8,
-   equal scalars on every rank, a 2-iteration solve with each band and
-   general product held against its plain version inside the ranks,
-   and D written collectively as binary and read back on the same grid,
-   tile for tile; (c) the same with eight ranks on 2 x 2 x 2 at 2^16
-   rows (the slices' split-k and merge).  A rank that fails fails the
-   phase.
+   PSMatrix, the 3D SUMMA). (a) the flagship at 'high' on a 1 x 1 x 1
+   grid inside a one-rank world (cpu:gloo,cuda:nccl): iterations,
+   energy, mu and D slot for slot equal to the same solve on the default
+   grid and to phase 8's, both wall times printed; (b) a world of four
+   ranks spawned on the one card (``parallel/launch.py``, gloo, device
+   cuda:0, every collective staged through host memory and listed), grid
+   2 x 2 x 1, the flagship's H at 2^18 rows: TRS4 at 'highest' (the
+   kernel chosen per multiply, the capacity grown: ``mesh_params``) with
+   the iterations of the 1 x 1 x 1 solve of the same H on the card, the
+   energy within 1e-6 of it, the certificates of phase 8, equal scalars
+   on every rank, the same solve run first with each band and general
+   product held against its plain version inside the ranks (every key
+   a rank's timed solve launched, both kernels in the world), D
+   written collectively as binary and read back on the same grid, tile
+   for tile, and a few triplets a rank gathered in rank order; (c) the
+   same with eight ranks on 2 x 2 x 2 at 2^16 rows (the slices' split-k
+   and merge). A rank that fails fails the phase.
+
+``python3 chip_smoke.py --cards`` runs only phases 1, 2 and phase 13's
+world (d), on a host with four cards: one rank on each card over the
+cpu:gloo,cuda:nccl pair, 2 x 2 x 1, the flagship's H at 2^20 rows,
+held as (b) and (c) are.
 
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
@@ -1282,12 +1288,13 @@ def _hold_split(x, lo, out) -> str:
 
 
 @contextlib.contextmanager
-def _held_on_path(errs, held: dict):
+def _held_on_path(errs, held: dict, hold: bool = True):
     """While open, each product of the band and general kernels that
     ``sp.spgemm`` launches, and each split pass, is held against its
     plain version on the same card tensors, once for each (kernel,
     tier, KA, KB, k_out, dtype) or split shape; ``held`` maps each to
-    its line."""
+    its line.  With ``hold`` off the keys are only recorded (to None),
+    the launches untouched."""
     wrappers = {name: getattr(sp, name) for name in (*PLAINS, "split_bf16")}
 
     def product(name):
@@ -1297,7 +1304,8 @@ def _held_on_path(errs, held: dict):
                    args[0].shape[1], args[2].shape[1], kw["k_out"],
                    args[1].dtype)
             if key not in held:
-                held[key] = _hold_product(name, args, kw, out, errs)
+                held[key] = (_hold_product(name, args, kw, out, errs)
+                             if hold else None)
             return out
         return call
 
@@ -1305,7 +1313,7 @@ def _held_on_path(errs, held: dict):
         out = wrappers["split_bf16"](x, lo=lo)
         key = ("split_bf16", lo, tuple(x.shape))
         if key not in held:
-            held[key] = _hold_split(x, lo, out)
+            held[key] = _hold_split(x, lo, out) if hold else None
         return out
 
     for name in PLAINS:
@@ -1764,6 +1772,8 @@ def phase_api(errs):
 # phase mesh: the worlds (grid, rows), the ranks' threads, each world's
 # time limit (s), and the flagship's 'high' solve of phase flagship
 MESH_WORLDS = {"b": ((2, 2, 1), 1 << 18), "c": ((2, 2, 2), 1 << 16)}
+# with --cards: one rank on each of four cards, at the flagship's rows
+MESH_CARDS = {"d": ((2, 2, 1), 1 << 20)}
 MESH_THREADS = {4: 2, 8: 1}
 MESH_TIMEOUT = 420.0
 
@@ -1795,15 +1805,19 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def mesh_rank(workdir: str, shape, dim: int, device: str, bs: int = 128,
-              hold: bool = True) -> None:
+def mesh_rank(workdir: str, shape, dim: int, device: str | None,
+              bs: int = 128, hold: bool = True) -> None:
     """One rank of phase mesh's worlds: the flagship's TRS4 at 'highest'
-    on a rows x cols x slices grid of ``dim`` rows, timed after a
-    2-iteration warm-up, with its launches counted; its certificates;
-    a 2-iteration solve with every band and general product held
-    against its plain version (``_held_on_path``, not counted); D
-    written collectively as binary and read back on the same grid, tile
-    for tile.  Writes rank{r}.json under ``workdir``."""
+    on a rows x cols x slices grid of ``dim`` rows on ``device`` (None:
+    this rank's own card); first with every band and general product
+    held against its plain version (``_held_on_path``, not counted; a
+    2-iteration warm-up instead with ``hold`` off), then timed with its
+    launches counted and the keys of its products recorded; its
+    certificates; D written collectively as binary and read back on the
+    same grid, tile for tile; every rank's triplets gathered by
+    ``dist.allgather_triplets``.  Writes rank{r}.json under
+    ``workdir``."""
+    import torch.distributed as tdist
     from ntpoly_tpu_torch.io import binary
     from ntpoly_tpu_torch.parallel import algebra as alg
     from ntpoly_tpu_torch.parallel import dist
@@ -1813,22 +1827,26 @@ def mesh_rank(workdir: str, shape, dim: int, device: str, bs: int = 128,
     h, isq = _grid_system(dim, bs, grid)
     nel = dim / 2
     params = mesh_params()
-    warm = params.copy()
-    warm.max_iterations = 2
-    density.trs4(h, isq, nel, warm)
-    _sync(device)
+    held, errs = {}, dict.fromkeys(KERNELS, 0.0)
+    if hold:
+        # the timed solve's settings, to convergence: it warms up too
+        with _held_on_path(errs, held):
+            density.trs4(h, isq, nel, params)
+    else:
+        warm = params.copy()
+        warm.max_iterations = 2
+        density.trs4(h, isq, nel, warm)
+    _sync(grid.device)
     grid.group("all").barrier()
+    launched = {}
     t0 = time.perf_counter()
-    rho, energy, mu, n, counts = solve(h, isq, nel, params)
-    _sync(device)
+    with _held_on_path(errs, launched, hold=False):
+        rho, energy, mu, n, counts = solve(h, isq, nel, params)
+    _sync(grid.device)
     wall = time.perf_counter() - t0
     # with the overlap I, the certificates' products choose their kernel
     # per call, as the solve's do
     inv = purity_invariants(rho, h, nel, params.threshold, s=isq)
-    held, errs = {}, dict.fromkeys(KERNELS, 0.0)
-    if hold:
-        with _held_on_path(errs, held):
-            density.trs4(h, isq, nel, warm)
     path = str(Path(workdir) / "d.bin")
     t0 = time.perf_counter()
     binary.write(rho, path)
@@ -1838,18 +1856,32 @@ def mesh_rank(workdir: str, shape, dim: int, device: str, bs: int = 128,
     back = binary.read(path, bs=bs, grid=grid, k=ref.k,
                        dtype=torch.float32)
     t_read = time.perf_counter() - t0
+    # a few triplets a rank, complex, gathered in rank order
+    size = dist.process_count()
+    rows = np.arange(3 * me, 3 * me + 3)
+    vals = rows * (1.0 - 2.0j)
+    gi, gj, gv = dist.allgather_triplets(rows, rows[::-1], vals)
+    want = np.arange(3 * size)
+    union = (bool((gi == want).all()) and bool((gv == want * (1.0 - 2.0j))
+                                               .all())
+             and bool((gj == want.reshape(size, 3)[:, ::-1].ravel()).all()))
     out = dict(rank=me, iterations=n, energy=repr(energy), mu=repr(mu),
                wall=wall, invariants=inv, launches=counts,
-               held=sorted(held.values()), errs=errs,
+               held=sorted(v for v in held.values() if v is not None),
+               held_kinds=sorted(map(list, {k[:2] for k in held})),
+               unheld=sorted(map(str, set(launched) - set(held))) if hold
+               else [], errs=errs,
                write_s=t_write, read_s=t_read, file_bytes=os.path.getsize(
-                   path), same=bool(same_slots(back, ref)),
+                   path), same=bool(same_slots(back, ref)), union=union,
+               backend=str(tdist.get_backend()), device=str(grid.device),
                staged=sorted(dist.staged), nnz=int(rho.nnz))
     (Path(workdir) / f"rank{me}.json").write_text(json.dumps(out))
 
 
 def mesh_one_rank():
     """(a) The flagship at 'high' on a 1 x 1 x 1 grid inside a one-rank
-    world (nccl): iterations, energy, mu and D slot for slot equal to
+    world (cpu:gloo,cuda:nccl): iterations, energy, mu and D slot for
+    slot equal to
     the same solve on the default grid, which equals phase flagship's.
     -> the world solve's launches."""
     import tempfile
@@ -1864,7 +1896,7 @@ def mesh_one_rank():
     with tempfile.TemporaryDirectory() as work:
         for where in ("default", "world"):
             if where == "world":
-                dist.initialize("nccl", init_method=f"file://{work}/store",
+                dist.initialize(init_method=f"file://{work}/store",
                                 rank=0, world_size=1, timeout=300)
                 grid = ProcessGrid(1, 1, 1, device="cuda:0")
             else:
@@ -1900,14 +1932,19 @@ def mesh_one_rank():
 
 def mesh_world(tag: str, errs):
     """(b)/(c): a world of ranks spawned on the one card (gloo, device
-    cuda:0), each running :func:`mesh_rank`; held to the 1 x 1 x 1
-    solve of the same H on the card: equal iterations, energy within
-    1e-6, the certificates of PERF.md section 2, equal scalars on every
-    rank, D read back tile for tile.  -> the ranks' summed launches."""
+    cuda:0), or with ``--cards`` (d): one rank on each card (the
+    cpu:gloo,cuda:nccl pair), each running :func:`mesh_rank`; held to
+    the 1 x 1 x 1 solve of the same H on the card: equal iterations,
+    energy within 1e-6, the certificates of PERF.md section 2, equal
+    scalars on every rank, every key a rank's timed solve launched held
+    on that rank and both kernels held in the world, D read back tile
+    for tile, the triplets' union.  -> the ranks' summed launches."""
     import tempfile
     from ntpoly_tpu_torch.parallel import launch
-    shape, dim = MESH_WORLDS[tag]
+    shape, dim = {**MESH_WORLDS, **MESH_CARDS}[tag]
     size = int(np.prod(shape))
+    # one card each where there are enough, as dist.initialize decides
+    device = None if size <= torch.cuda.device_count() else "cuda:0"
     bs = trs4_tiers.CONFIGS["flagship"]["bs"]
     params = mesh_params()
     h, isq = _grid_system(dim, bs, ProcessGrid(device="cuda"))
@@ -1920,8 +1957,8 @@ def mesh_world(tag: str, errs):
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
         launch.run("chip_smoke:mesh_rank", size,
-                   args=(work, list(shape), dim, "cuda:0", bs),
-                   workdir=work, timeout=MESH_TIMEOUT, backend="gloo",
+                   args=(work, list(shape), dim, device, bs),
+                   workdir=work, timeout=MESH_TIMEOUT,
                    threads=MESH_THREADS[size])
         t_world = time.perf_counter() - t0
         ranks = [json.loads((Path(work) / f"rank{r}.json").read_text())
@@ -1929,6 +1966,8 @@ def mesh_world(tag: str, errs):
     r0 = ranks[0]
     inv = r0["invariants"]
     what = f"({tag}) {'x'.join(map(str, shape))}, {dim} rows"
+    print(f"  {what}: backend {r0['backend']}, devices "
+          f"{[r['device'] for r in ranks]}")
     print(f"  {what}: {r0['iterations']} iterations in {r0['wall']:.3f} s "
           f"(rank 0; ranks {[round(r['wall'], 3) for r in ranks]}), the "
           f"world {t_world:.1f} s with start-up; 1 x 1 x 1 on the card "
@@ -1937,10 +1976,22 @@ def mesh_world(tag: str, errs):
     print(f"  {what}: D {r0['file_bytes']} bytes written in "
           f"{max(r['write_s'] for r in ranks):.2f} s, read back in "
           f"{max(r['read_s'] for r in ranks):.2f} s, tile for tile "
-          f"{[r['same'] for r in ranks]}; collectives staged through the "
+          f"{[r['same'] for r in ranks]}; triplets gathered "
+          f"{[r['union'] for r in ranks]}; collectives staged through the "
           f"host (gloo): {r0['staged']}")
     for line in r0["held"]:
         print(f"  {what} held on rank 0: {line}")
+    # the band plan takes only the ranks whose gathered row panel has no
+    # gaps, so each kernel need not run on every rank; both must run in
+    # the world, and each rank's timed keys must all have been held
+    kinds = {tuple(k) for r in ranks for k in r["held_kinds"]}
+    both = {("spgemm_band", "highest"), ("spgemm_general", "highest")}
+    held_ok = [bool(r["held"]) and not r["unheld"] for r in ranks]
+    print(f"  {what}: kernels held per rank "
+          f"{[[k[0] for k in r['held_kinds']] for r in ranks]}; every key "
+          f"the timed solve launched held, per rank: {held_ok}"
+          + "".join(f"; rank {r['rank']} not held: {r['unheld']}"
+                    for r in ranks if r["unheld"]))
     energy = float(r0["energy"])
     ok = (all((r["iterations"], r["energy"], r["mu"], r["invariants"])
               == (r0["iterations"], r0["energy"], r0["mu"], inv)
@@ -1950,7 +2001,8 @@ def mesh_world(tag: str, errs):
           and inv["idempotency_rel"] <= 1e-5
           and inv["commutator_rel"] <= 5e-5
           and inv["trace_abs_err"] / (dim / 2) <= 1e-6
-          and all(r["same"] and r["held"] for r in ranks))
+          and all(r["same"] and r["union"] for r in ranks)
+          and all(held_ok) and both <= kinds)
     if not ok:
         raise AssertionError(f"phase mesh {what} out of bounds")
     for r in ranks:
@@ -1977,14 +2029,37 @@ def phase_mesh(errs):
     return counts
 
 
-def main() -> int:
-    def run(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        print(f"phase {name}: ok, {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        return out
+def _run(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: ok, {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
 
+
+def _result() -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main_cards() -> int:
+    """``--cards``: only phase mesh's world (d), one rank on each of
+    four cards over the cpu:gloo,cuda:nccl pair, at the flagship's 2^20
+    rows, held as (b) and (c) are."""
+    smi = _run("device", phase_device)
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("--cards needs four cards")
+    _run("build", phase_build)
+    errs = dict.fromkeys(KERNELS, 0.0)
+    counts = _run("mesh_cards", mesh_world, "d", errs)
+    print(json.dumps({"mesh_cards": counts, "max_abs_err": errs}))
+    print(smi)
+    _result()
+    return 0
+
+
+def main() -> int:
+    run = _run
     smi = run("device", phase_device)
     run("build", phase_build)
     errs = {k: 0.0 for k in KERNELS}
@@ -2023,11 +2098,9 @@ def main() -> int:
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    _result()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_cards() if sys.argv[1:] == ["--cards"] else main())

@@ -12,9 +12,10 @@ in a world of rows x columns x slices ranks, for example
     torchrun --nproc-per-node 4 -m ntpoly_tpu_torch.examples.<name> \
         ... --process_rows 2 --process_columns 2
 
-(``gloo`` when the ranks share a card or run on the CPU:
-``NTPOLY_BACKEND=gloo``); without a world any value but 1 raises the
-grid's error.  ``main(argv)`` runs an example in-process.
+(the backend is ``dist.initialize``'s choice: ``gloo`` on the CPU and
+for ranks sharing a card, ``cpu:gloo,cuda:nccl`` with a card a rank);
+without a world any value but 1 raises the grid's error.
+``main(argv)`` runs an example in-process.
 """
 import argparse
 

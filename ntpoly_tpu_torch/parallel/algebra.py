@@ -223,12 +223,17 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
         gc, gb = _gather_slices(g, cc, cb)
         if compacted:
             # the merged need, not each slice's filtered count: slices
-            # that each fit k_out can overflow it together
-            mc, _ = bell.merge(gc, gb, gc.shape[-1], threshold)
+            # that each fit k_out can overflow it together.  One merge at
+            # full width; a slot is its id's rank, so its first k_out
+            # slots are the merge at k_out
+            mc, mb = bell.merge(gc, gb, gc.shape[-1], threshold)
             merged = (mc != EMPTY).sum(dim=-1).amax().to(torch.int32)
             fill = torch.where(fill >= EMPTY, fill,
                                torch.maximum(fill, merged))
-        cc, cb = bell.merge(gc, gb, k_out, threshold)
+            cc = mc[..., :k_out].contiguous()
+            cb = mb[..., :k_out, :, :].contiguous()
+        else:
+            cc, cb = bell.merge(gc, gb, k_out, threshold)
     stats = torch.stack([fill.to(torch.int32),
                          bell.used_slots(cc).amax().to(torch.int32)])
     return cc[None], cb[None], g.group("all").max(stats)

@@ -5,10 +5,12 @@ every device of a host from one controller and exchanges triplets over
 the JAX coordination service; the port runs NTPoly's own model, one
 process (rank) per device, SPMD, as MPI does:
 
-  * :func:`initialize` starts the world (``init_process_group``) with
-    an explicit backend: ``nccl`` when every rank has a card of its
-    own, ``gloo`` on the CPU and when several ranks share one card
-    (NCCL refuses two ranks on one GPU).
+  * :func:`initialize` starts the world (``init_process_group``).  When
+    every rank can have a card of its own the backend is the
+    device-aware pair ``cpu:gloo,cuda:nccl``: card tensors go through
+    NCCL and the host tensors of the triplet exchanges and the
+    collective writes through gloo.  On the CPU, and when several ranks
+    share one card (NCCL refuses two ranks on one GPU), it is ``gloo``.
   * :class:`Group` wraps a process group with the collectives the
     matrix layer uses (gather, gather of ragged lengths, max, and the
     all-to-all of ragged buckets).  A group of one rank is the identity
@@ -33,11 +35,13 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["initialize", "shutdown", "process_count", "process_index",
-           "is_multiprocess", "host_value", "allgather_triplets",
-           "exchange_triplets", "Group", "group", "world", "staged"]
+           "allgather_triplets", "exchange_triplets", "Group", "group",
+           "world", "staged"]
 
 # collectives that went through host memory (gloo with CUDA tensors)
 staged: set = set()
+# the backend of a world whose ranks each have a card
+PAIR = "cpu:gloo,cuda:nccl"
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -45,19 +49,26 @@ def initialize(backend: str | None = None, init_method: str | None = None,
                timeout: float | None = None) -> None:
     """Start the world.  ``rank`` and ``world_size`` default to the
     ``RANK`` and ``WORLD_SIZE`` environment (as ``torchrun`` sets them),
-    ``init_method`` to ``env://``; ``backend`` to ``NTPOLY_BACKEND``
-    if set, else ``nccl`` when each rank can have a card of its own,
-    else ``gloo``.  ``timeout`` (s)
+    ``init_method`` to ``env://``.  ``backend`` defaults to
+    ``cpu:gloo,cuda:nccl`` when there are at least as many cards as
+    ranks (each rank then works on ``cuda:{LOCAL_RANK}``, made its
+    current device), else to ``gloo``; plain ``nccl`` is refused, since
+    the matrix layer exchanges host tensors too.  ``timeout`` (s)
     bounds every collective, so that a hung rank fails the run."""
     if rank is None:
         rank = int(os.environ.get("RANK", 0))
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", 1))
-    backend = backend or os.environ.get("NTPOLY_BACKEND")
     if backend is None:
         own_card = (torch.cuda.is_available()
                     and world_size <= torch.cuda.device_count())
-        backend = "nccl" if own_card else "gloo"
+        backend = PAIR if own_card else "gloo"
+    if backend == "nccl":
+        raise ValueError(f"backend 'nccl' carries no host tensors; use "
+                         f"{PAIR!r}")
+    if "nccl" in backend:
+        torch.cuda.set_device(int(os.environ.get(
+            "LOCAL_RANK", rank % torch.cuda.device_count())))
     kw = {}
     if timeout is not None:
         kw["timeout"] = datetime.timedelta(seconds=timeout)
@@ -79,17 +90,6 @@ def process_count() -> int:
 
 def process_index() -> int:
     return tdist.get_rank() if tdist.is_initialized() else 0
-
-
-def is_multiprocess() -> bool:
-    return process_count() > 1
-
-
-def host_value(x) -> np.ndarray:
-    """A replicated tensor (or array) read back to the host."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 _state: dict = {"timeout": None}
@@ -160,23 +160,19 @@ class Group:
         ``d``; -> what every member sent here, in member order."""
         if self.size == 1:
             return x
-        dev = x.device
-        cnt = torch.tensor(counts, dtype=torch.int64)
-        got = torch.empty_like(cnt)
-        if tdist.get_backend(self.pg) == "gloo":
-            tdist.all_to_all_single(got, cnt, group=self.pg)
-        else:
-            g = got.to(dev)
-            tdist.all_to_all_single(g, cnt.to(dev), group=self.pg)
-            got = g.cpu()
-        recv = [int(c) for c in got.tolist()]
         stage = self._stage("all_to_all", x)
+        # the counts travel on the payload's side of the backend
+        cdev = "cpu" if stage else x.device
+        cnt = torch.tensor(counts, dtype=torch.int64, device=cdev)
+        got = torch.empty_like(cnt)
+        tdist.all_to_all_single(got, cnt, group=self.pg)
+        recv = [int(c) for c in got.tolist()]
         src = x.contiguous().cpu() if stage else x.contiguous()
         out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
         tdist.all_to_all_single(out, src, output_split_sizes=recv,
                                 input_split_sizes=list(counts),
                                 group=self.pg)
-        return out.to(dev) if stage else out
+        return out.to(x.device) if stage else out
 
     def barrier(self) -> None:
         if self.size > 1:

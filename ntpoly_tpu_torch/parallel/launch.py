@@ -39,16 +39,17 @@ class WorldError(NTPolyError, RuntimeError):
 
 
 def run(target: str, world_size: int, *, args=(), workdir,
-        timeout: float = 300.0, backend: str = "gloo",
-        threads: int = 1, pythonpath=(), env=None) -> list:
+        timeout: float = 300.0, threads: int = 1,
+        pythonpath=()) -> list:
     """Run ``target`` ("module:function") as each rank of a new world
     of ``world_size`` ranks -> every rank's standard output, in rank
-    order.  ``args`` must be JSON values."""
+    order.  ``args`` must be JSON values.  The backend is
+    :func:`dist.initialize`'s default: with as many cards as ranks,
+    each rank works on its own card."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     store = workdir / f"rendezvous-{os.getpid()}-{time.monotonic_ns()}"
     penv = dict(os.environ)
-    penv.update(env or {})
     penv["PYTHONPATH"] = os.pathsep.join(
         [str(REPO), *map(str, pythonpath)]
         + ([penv["PYTHONPATH"]] if penv.get("PYTHONPATH") else []))
@@ -61,7 +62,7 @@ def run(target: str, world_size: int, *, args=(), workdir,
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "ntpoly_tpu_torch.parallel.launch",
              target, str(rank), str(world_size), f"file://{store}",
-             backend, str(timeout), str(threads), json.dumps(list(args))],
+             str(timeout), str(threads), json.dumps(list(args))],
             stdout=out, stderr=err, env={**penv, "LOCAL_RANK": str(rank)},
             cwd=str(REPO)))
     deadline = time.monotonic() + timeout + 30.0
@@ -99,11 +100,11 @@ def run(target: str, world_size: int, *, args=(), workdir,
 
 
 def _main(argv) -> None:
-    target, rank, size, init, backend, timeout, threads, args = argv
+    target, rank, size, init, timeout, threads, args = argv
     import torch
     torch.set_num_threads(int(threads))
     from . import dist
-    dist.initialize(backend, init_method=init, rank=int(rank),
+    dist.initialize(init_method=init, rank=int(rank),
                     world_size=int(size), timeout=float(timeout))
     try:
         module, name = target.split(":")

@@ -42,6 +42,7 @@ CASES = [
     "diagonal_scale", "load_balanced_gemm", "thresholded_gemm",
     "capacity_growth", "methods", "grand_sum", "trs4", "trs2", "pm",
     "hpcp", "sign", "eigen_dense", "lobpcg", "cholesky",
+    "allgather_triplets",
 ]
 
 
@@ -82,7 +83,7 @@ class Pkg:
         self.which = which
         if which == "port":
             import torch
-            from ntpoly_tpu_torch.parallel import algebra, pmatrix
+            from ntpoly_tpu_torch.parallel import algebra, dist, pmatrix
             from ntpoly_tpu_torch.parallel.grid import ProcessGrid
             from ntpoly_tpu_torch.solvers import (density, eigen, linear,
                                                   parameters, sign,
@@ -93,7 +94,7 @@ class Pkg:
             self.grid = ProcessGrid(*shape, device="cpu")
             self.f64, self.c128 = torch.float64, torch.complex128
         else:
-            from ntpoly_tpu.parallel import algebra, pmatrix
+            from ntpoly_tpu.parallel import algebra, dist, pmatrix
             from ntpoly_tpu.parallel.grid import ProcessGrid
             from ntpoly_tpu.solvers import (density, eigen, linear,
                                             parameters, sign, squareroot)
@@ -101,7 +102,7 @@ class Pkg:
             from ntpoly_tpu.utils import permutation
             self.grid = ProcessGrid(*shape)
             self.f64, self.c128 = np.float64, np.complex128
-        self.PM, self.alg = pmatrix, algebra
+        self.PM, self.alg, self.dist = pmatrix, algebra, dist
         self.density, self.eigen, self.linear = density, eigen, linear
         self.sign, self.sqrt, self.log = sign, squareroot, log
         self.perm = permutation
@@ -319,6 +320,17 @@ def run_case(name: str, pk: Pkg, logdir, rank: int = 0, size: int = 1):
     elif name == "cholesky":
         ell = pk.linear.cholesky_decomposition(pk.fill(d["s"]))
         out["dense_l"] = pk.dense(ell)
+    elif name == "allgather_triplets":
+        # each rank holds a run of the triplets; the union, in rank
+        # order, is the reference's one process's whole list
+        i, j = np.nonzero(d["z"])
+        v = d["z"][i, j]
+        if pk.which == "port":
+            part = np.array_split(np.arange(len(i)), size)[rank]
+            i, j, v = i[part], j[part], v[part]
+        gi, gj, gv = pk.dist.allgather_triplets(i, j, v)
+        out["dense_ag_rows"], out["dense_ag_cols"] = gi, gj
+        out["dense_ag_vals"] = gv
     else:
         raise KeyError(name)
     return out

@@ -58,3 +58,27 @@ def test_algebra_interface_is_the_reference_s():
     from ntpoly_tpu_torch.parallel import algebra as palg
     assert palg.__all__ == ralg.__all__
     assert all(callable(getattr(palg, name)) for name in palg.__all__)
+
+
+def test_backend_rule(monkeypatch):
+    """``dist.initialize`` refuses plain nccl (it carries no host
+    tensors, which the triplet exchanges and collective writes pass)
+    before it joins a world, and picks gloo without cards, the
+    cpu:gloo,cuda:nccl pair with a card a rank."""
+    import torch
+    import torch.distributed as tdist
+    from ntpoly_tpu_torch.parallel import dist
+    with pytest.raises(ValueError, match="cpu:gloo,cuda:nccl"):
+        dist.initialize("nccl", init_method="file:///nonexistent",
+                        rank=0, world_size=1)
+    assert not tdist.is_initialized()
+    chosen = []
+    monkeypatch.setattr(tdist, "init_process_group",
+                        lambda backend, **kw: chosen.append(backend))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: None)
+    dist.initialize(rank=0, world_size=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    dist.initialize(rank=1, world_size=2)
+    dist.initialize(rank=1, world_size=3)
+    assert chosen == ["gloo", dist.PAIR, "gloo"]
