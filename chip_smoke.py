@@ -34,7 +34,10 @@ Phases, one line each with its seconds:
    fast), the split pass alone on that X and the band kernel's
    tensor-core product alone on X split once (bit for bit the
    wrapper's), the general kernel at the same product in rank form at
-   'high' and at the parity shape (f64).
+   'high' and at the parity shape (f64); each of these launches once
+   more under the device predicate (``run``): with 1 bit for bit the
+   plain launch and timed beside it, with 0 its output untouched and
+   timed.
 5. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
    full size, 2^19 rows of the chain at bs 128, every arm timed, and
    torch.bmm in float32 over the same number of dense block products
@@ -101,7 +104,31 @@ Phases, one line each with its seconds:
    against the dense Fermi-Dirac density); and sign, inverse, exp/log,
    dense FOE and WOM_C at 2048 rows, bs 32, f64 on the card against
    the CPU (1e-9 relative).
-11. analysis: the analysis path (profiling/analysis.py) at the
+11. chunked: the chunked driver (profiling/chunked.py; solvers/common
+   ``run_chunked``) at 2^20 rows: (a) the flagship of phase 8 at 'high'
+   with iters_per_sync 4 and 8, each solve captured as CUDA graphs
+   (one a chunk, captured in the solve), once more warm (replays only),
+   once under torch.profiler, and uncaptured (``common.uncaptured``),
+   the captured solve bit for bit the uncaptured one (D's slots and
+   blocks, energy, mu, iterations), within phase 8's bars (<= 10
+   iterations; idempotency, commutator and electron count at
+   'highest'), its wall seconds and the device's idle share printed
+   beside the eager solve's; (b) PM, TRS2 and HPCP of phase 9's H with
+   its ISQ, and the Hotelling inverse, the order-2 Newton-Schulz ISQ,
+   ``compute_inverse_root(S, 2)``, CG of S X = H and the sign of H - mu
+   I of phase 10, at 'highest', 'grow', the automatic kernel choice
+   and 4 iterations a chunk, the pin from the carry's capacity up
+   (k_out 2), each captured bit for bit its uncaptured twin and within
+   its eager solve's bars (phase 9's certificates and iteration caps,
+   `functions.BARS`, the ISQ residual 1e-5), one regrowing its pin at
+   least; (c) the uncaptured solves of (a) and (b) with every band and
+   general product and split pass held against its plain version as in
+   phase 9, and every (kernel, tier, KA, KB, k_out) key the captured
+   solves launched held there (a key launched under the device
+   predicate by the band or the general kernel, whichever computed);
+   (d) each chunked solve's peak memory under 80 GB, printed beside the
+   eager peaks.
+12. analysis: the analysis path (profiling/analysis.py) at the
    flagship's width, 2^20 rows, bs 128, f32, 'highest', threshold 1e-7,
    each solve timed after a warm-up (the path once at 4096 rows) with
    its iterations, multiplies, launches and peak memory, held to
@@ -147,7 +174,7 @@ Phases, one line each with its seconds:
    on the card (`api.EXAMPLE_BARS`); and the PremadeMatrix workflow at
    2048 rows, f64, on the card against the CPU (densities within 1e-12
    relative).
-13. mesh: the multi-device layer (parallel/dist.py, the sharded
+14. mesh: the multi-device layer (parallel/dist.py, the sharded
    PSMatrix, the 3D SUMMA). (a) the flagship at 'high' on a 1 x 1 x 1
    grid inside a one-rank world (cpu:gloo,cuda:nccl): iterations,
    energy, mu and D slot for slot equal to the same solve on the default
@@ -166,7 +193,7 @@ Phases, one line each with its seconds:
    same with eight ranks on 2 x 2 x 2 at 2^16 rows (the slices' split-k
    and merge). A rank that fails fails the phase.
 
-``python3 chip_smoke.py --cards`` runs only phases 1, 2 and phase 13's
+``python3 chip_smoke.py --cards`` runs only phases 1, 2 and phase 14's
 world (d), on a host with four cards: one rank on each card over the
 cpu:gloo,cuda:nccl pair, 2 x 2 x 1, the flagship's H at 2^20 rows,
 held as (b) and (c) are.
@@ -174,9 +201,12 @@ held as (b) and (c) are.
 Kernel launches are counted on each kernel's own path, with the counts
 reset just before the path and read just after it: the band and
 general kernels in the card's TRS4 solves of phases 7 and 8 at the
-flagship's 'high', in phase 9's ISQ and timed solves and in the timed
-solves of phases 10 and 11, in phase 12's calls through the API and in
-phase 13's timed solves (every rank's; the `kernels` line reports
+flagship's 'high', in phase 9's ISQ and timed solves, in the timed
+solves of phase 10, in phase 11's captured solves (band and general
+launches under the device predicate counted apart, as the `kernels`
+line's `launches_predicated`), in the timed solves of phase 12, in
+phase 13's calls through the API and in phase 14's timed solves
+(every rank's; the `kernels` line reports
 their sum), the split pass in those
 solves, the stream and window kernels in the low-K profile of phase 5,
 the uniform kernel
@@ -209,6 +239,13 @@ import time
 import warnings
 from pathlib import Path
 
+# expandable segments: the chunked solves' pinned widths and the held
+# products' plain versions allocate blocks of many sizes, and with fixed
+# segments the caching allocator kept ~15 GiB reserved but unusable by
+# the analysis phase's held products (read before torch's first CUDA
+# allocation, so set before the import)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
 import numpy as np
 import torch
 
@@ -218,12 +255,12 @@ from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
-from ntpoly_tpu_torch.profiling import (analysis, functions, lowk, lowk_r5,
-                                        overlap, trs4_tiers)
+from ntpoly_tpu_torch.profiling import (analysis, chunked, functions,
+                                        lowk, lowk_r5, overlap, trs4_tiers)
 from ntpoly_tpu_torch.profiling import api as api_path
 from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
                                                    purity_invariants, solve)
-from ntpoly_tpu_torch.solvers import density
+from ntpoly_tpu_torch.solvers import common, density
 from ntpoly_tpu_torch.systems import gapped_fn
 
 KERNELS = {
@@ -700,13 +737,15 @@ def phase_timing(errs, times):
                   precision=prec)
         runs.append((
             "spgemm_band", prec, "R=8192 KA=KB=5 k_out=9 bs=128 f32",
-            lambda kw=kw: sp.spgemm_band(ac, ab, ac, ab, gg0, **kw),
+            lambda kw=kw, **x: sp.spgemm_band(ac, ab, ac, ab, gg0, **kw,
+                                              **x),
             lambda kw=kw: sp.spgemm_band_plain(ac, ab, ac, ab, gg0, **kw),
             5, 5 * 128, *tier_work(prec, flops), (ac, ab, gg0)))
     kw = dict(k_out=9, alpha=1.0, threshold=1e-7, precision="high")
     runs.append((
         "spgemm_general", "high", "R=8192 KA=KB=5 k_out=9 bs=128 f32 rank "
-        "form", lambda: sp.spgemm_general(ac, ab, ac, ab, plan9, **kw),
+        "form", lambda **x: sp.spgemm_general(ac, ab, ac, ab, plan9, **kw,
+                                              **x),
         lambda: sp.spgemm_general_plain(ac, ab, ac, ab, plan9, **kw), 5,
         5 * 128, *tier_work("high", flops), (ac, ab, plan9)))
     # phase-7 X @ X: 256 rows, KA = KB = 10, k_out 10, bs 32, f64
@@ -716,7 +755,7 @@ def phase_timing(errs, times):
     kw2 = dict(k_out=10, alpha=1.0, threshold=1e-7)
     runs.append((
         "spgemm_general", "highest", "R=256 KA=KB=10 k_out=10 bs=32 f64",
-        lambda: sp.spgemm_general(gc, gb, gc, gb, plan, **kw2),
+        lambda **x: sp.spgemm_general(gc, gb, gc, gb, plan, **kw2, **x),
         lambda: sp.spgemm_general_plain(gc, gb, gc, gb, plan, **kw2), 20,
         10 * 32, 2 * 32 ** 3 * int((plan < 10).sum()), "fp64_tensor",
         (gc, gb, plan)))
@@ -753,6 +792,7 @@ def phase_timing(errs, times):
         print(f"  {name} {prec} {shape}: kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms, {bound_text(t)}, max rel err {err:.2e} "
               f"(tolerance {tol:.1e}){exact}")
+        predicated(name, prec, shape, kern, kb, kn, reps, inputs[1])
         del kb, kn
     # the split pass alone on the flagship X: what 'high' adds
     ms = lowk.cuda_time(lambda: sp.split_bf16(ab), 10)
@@ -781,6 +821,36 @@ def phase_timing(errs, times):
     if fast < 2:
         raise AssertionError("the band kernel's 'high' is not twice as "
                              "fast as its 'highest'")
+
+
+def predicated(name, prec, shape, kern, kb, kn, reps, x) -> None:
+    """The same launch under the device predicate (``run``, as the
+    chunked solves' 'select' launches it): with 1, bit for bit the
+    plain launch's output ``kb``, ``kn`` and timed beside it (the split
+    pass included at 'high', as there); with 0, the output buffers
+    untouched, timed on X (``x``) split once beforehand at 'high', as
+    'select' shares one split between the two kernels: what the
+    unchosen kernel of a 'select' multiply costs."""
+    tier = sp.kernel_tier(x.dtype, prec)
+    planes = None if tier == "highest" else sp._planes(x, x, tier)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    zero = one - 1
+    out = (torch.full_like(kb, 7.0), torch.full_like(kn, 7.0))
+    got = kern(run=one, out=(out[0].clone(), out[1].clone()))
+    off = kern(run=zero, out=(out[0].clone(), out[1].clone()))
+    same = torch.equal(got[0], kb) and torch.equal(got[1], kn)
+    kept = torch.equal(off[0], out[0]) and torch.equal(off[1], out[1])
+    if not (same and kept):
+        raise AssertionError(f"{name} {prec} at {shape} under the "
+                             f"predicate: run 1 bit for bit {same}, run "
+                             f"0 leaves the output {kept}")
+    del got, off
+    ms1 = lowk.cuda_time(lambda: kern(run=one, out=out), reps)
+    ms0 = lowk.cuda_time(lambda: kern(run=zero, out=out, planes=planes),
+                         reps)
+    print(f"  {name} {prec} {shape} under the predicate: run 1 "
+          f"{ms1:.3f} ms (bit for bit), run 0 {ms0:.3f} ms (output "
+          f"untouched)")
 
 
 def product_alone(what, run, wrapper_out, plain_ms, flops, inputs):
@@ -1293,18 +1363,29 @@ def _held_on_path(errs, held: dict, hold: bool = True):
     ``sp.spgemm`` launches, and each split pass, is held against its
     plain version on the same card tensors, once for each (kernel,
     tier, KA, KB, k_out, dtype) or split shape; ``held`` maps each to
-    its line.  With ``hold`` off the keys are only recorded (to None),
-    the launches untouched."""
+    its line.  A launch under the device predicate (``run``; the
+    chunked solves' 'select') is held where the predicate chose it and
+    skipped where its blocks all returned.  With ``hold`` off the keys
+    are only recorded (to None; a predicated launch's key with "pred"
+    appended), the launches untouched and nothing read from the card:
+    this records the keys of a solve being captured."""
     wrappers = {name: getattr(sp, name) for name in (*PLAINS, "split_bf16")}
 
     def product(name):
         def call(*args, **kw):
             out = wrappers[name](*args, **kw)
+            run = kw.get("run")
+            if hold and run is not None and not bool(run):
+                return out
             key = (name, sp.kernel_tier(args[1].dtype, kw["precision"]),
                    args[0].shape[1], args[2].shape[1], kw["k_out"],
                    args[1].dtype)
+            if not hold and run is not None:
+                key = key + ("pred",)
             if key not in held:
-                held[key] = (_hold_product(name, args, kw, out, errs)
+                plain_kw = {k: v for k, v in kw.items()
+                            if k not in ("run", "out", "planes")}
+                held[key] = (_hold_product(name, args, plain_kw, out, errs)
                              if hold else None)
             return out
         return call
@@ -1535,6 +1616,125 @@ def phase_functions(errs):
     functions_dense()
     functions_twin()
     print(f"  launches on the path: {counts}")
+    return counts
+
+
+# phase chunked: the flagship's 'iters_per_sync' values, the chunked
+# loops at the path's width, and the eager peaks of PERF.md section 6
+# that a chunked solve's peak is printed beside
+CHUNKED_DIM = 1 << 20
+EAGER_PEAK_GIB = "35.0-40.5 (overlap path), 22.5-54.0 (functions path)"
+CHUNKED_KERNELS = PATH_KERNELS + ("spgemm_band_pred", "spgemm_general_pred")
+
+
+def _chunked_line(name: str, r: dict) -> str:
+    unc, secs = r["uncaptured"], r["seconds"]
+    return (f"  {name}: iterations {r['iterations']}, captured {secs:.3f} "
+            f"s (capture included), uncaptured {unc['seconds']:.3f} "
+            f"s, bit for bit {r['same']}, pins regrown to {r['pins']}, "
+            f"peak memory {r['peak_gib']:.2f} GiB, launches "
+            f"{r['launches']}" + "".join(
+                f", {k} {v!r}" for k, v in r.items()
+                if isinstance(v, float) and k not in ("seconds",
+                                                      "peak_gib")))
+
+
+def _chunked_counts(*readings) -> dict:
+    return {k: sum(r["launches"][k] for r in readings)
+            for k in CHUNKED_KERNELS}
+
+
+def _chunked_held(held: dict, recorded: dict) -> None:
+    """Every key that the captured solves launched was held on the
+    uncaptured ones: a plain launch's key itself, a predicated launch's
+    (tier, KA, KB, k_out, dtype) by the band or the general kernel,
+    whichever the device's choice ran; and the band and general
+    kernels and the split pass each held at least once."""
+    missing = []
+    for key in recorded:
+        if key[-1] != "pred":
+            ok = key in held
+        else:
+            ok = any((name,) + key[1:-1] in held for name in PLAINS)
+        if not ok:
+            missing.append(key)
+    if missing:
+        raise AssertionError(f"captured keys never held: {missing}")
+    kinds = {key[0] for key in held}
+    if not {"spgemm_band", "spgemm_general", "split_bf16"} <= kinds:
+        raise AssertionError("the chunked path's products held did not "
+                             "cover the band and general kernels and "
+                             "the split pass")
+
+
+def phase_chunked(errs):
+    """The chunked driver (``profiling/chunked.py``; nothing of it is
+    eager): (a) the flagship TRS4 at 2^20 rows with ``iters_per_sync``
+    4 and 8, each solve captured as CUDA graphs bit for bit its
+    uncaptured twin, at the flagship's bars, its wall time and the
+    device's idle share beside the eager solve's; (b) the other eight
+    chunked loops at 2^20 rows at 'highest', 'grow', the automatic
+    kernel choice and 4 iterations a chunk, each bit for bit its
+    uncaptured twin and within its eager solve's bars, one regrowing
+    its pin at least; (c) the uncaptured solves inside
+    ``_held_on_path``, every key of the captured solves held; (d) each
+    chunked solve's peak memory under 80 GB, printed beside the eager
+    peaks.  -> the captured solves' launch counts."""
+    held, recorded = {}, {}
+
+    def hold():
+        return _held_on_path(errs, held)
+
+    def record():
+        return _held_on_path(errs, recorded, hold=False)
+
+    flag = chunked.flagship(CHUNKED_DIM, hold=hold, record=record)
+    e = flag["eager"]
+    print(f"  flagship eager: {e['iterations']} iterations, "
+          f"{e['seconds']:.3f} s wall, idle share {e['idle_share']:.4f} "
+          f"(traced {e['traced_s']:.3f} s), peak memory "
+          f"{e['peak_gib']:.2f} GiB, launches {e['launches']}")
+    solves = []
+    for ips in chunked.FLAGSHIP_IPS:
+        r = flag[f"ips_{ips}"]
+        c = r["captured"]
+        solves.append(c)
+        print(f"  flagship iters_per_sync {ips}: {c['iterations']} "
+              f"iterations, captured {c['seconds']:.3f} s (capture "
+              f"included), warm {r['warm']['seconds']:.3f} s (replays "
+              f"only), uncaptured {r['uncaptured']['seconds']:.3f} s, "
+              f"idle share {r['idle_share']:.4f} (traced "
+              f"{r['traced_s']:.3f} s), bit for bit {r['same']}, energy "
+              f"{c['energy']!r}, mu {c['mu']!r}, peak memory "
+              f"{c['peak_gib']:.2f} GiB (warm {r['warm']['peak_gib']:.2f}"
+              f"), launches {c['launches']}; certificates (at "
+              f"'highest'): idempotency {c['idempotency_rel']!r}, "
+              f"commutator {c['commutator_rel']!r}, trace error per "
+              f"electron {c['trace_err_per_electron']!r}")
+    bad = chunked.flagship_failures(flag)
+    loops = chunked.loops(CHUNKED_DIM, hold=hold, record=record)
+    for name in chunked.LOOP_BARS:
+        print(_chunked_line(name, loops[name]))
+        solves.append(loops[name])
+    bad += chunked.loop_failures(loops)
+    if not any(loops[name]["pins"] for name in chunked.LOOP_BARS):
+        bad.append("no chunked loop regrew its pin")
+    over = [r["peak_gib"] for r in solves if r["peak_gib"] * 2**30 >= 80e9]
+    if over:
+        bad.append(f"chunked peaks at or over 80 GB: {over} GiB")
+    if bad:
+        raise AssertionError("phase chunked: " + "; ".join(bad))
+    torch.cuda.synchronize()
+    for key, line in held.items():
+        print(f"  held on the path: {line}")
+    _chunked_held(held, recorded)
+    peaks = [r["peak_gib"] for r in solves]
+    print(f"  chunked peaks {min(peaks):.2f}-{max(peaks):.2f} GiB against "
+          f"the flagship's eager {e['peak_gib']:.2f} GiB and the eager "
+          f"paths' {EAGER_PEAK_GIB} GiB (PERF.md section 6)")
+    counts = _chunked_counts(*solves)
+    print(f"  launches on the path (captured solves): {counts}")
+    common.release_graphs()
     return counts
 
 
@@ -2032,7 +2232,9 @@ def phase_mesh(errs):
 def _run(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"phase {name}: ok, {time.perf_counter() - t0:.2f} s", flush=True)
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"phase {name}: ok, {time.perf_counter() - t0:.2f} s "
+          f"({held:.2f} GiB of device memory still allocated)", flush=True)
     return out
 
 
@@ -2077,25 +2279,34 @@ def main() -> int:
     flagship = run("flagship", phase_flagship)
     non_orth = run("overlap", phase_overlap, errs)
     funcs = run("functions", phase_functions, errs)
+    chunk = run("chunked", phase_chunked, errs)
     anal = run("analysis", phase_analysis, errs)
     surface = run("api", phase_api, errs)
     mesh = run("mesh", phase_mesh, errs)
-    counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k] + anal[k]
-              + surface[k] + mesh[k] for k in PATH_KERNELS}
+    counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k]
+              + chunk[k] + anal[k] + surface[k] + mesh[k]
+              for k in PATH_KERNELS}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
+    pred = {k: chunk[k + "_pred"] for k in ("spgemm_band",
+                                            "spgemm_general")}
     print(f"launches on each kernel's path: {counts} (parity solve "
           f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
-          f"functions path {funcs}, analysis path {anal}, api path "
-          f"{surface}, mesh path {mesh}, low-K profile "
-          f"{low}, round-5 low-K profile {low_r5})")
-    for name, n in counts.items():
+          f"functions path {funcs}, chunked path {chunk}, analysis path "
+          f"{anal}, api path {surface}, mesh path {mesh}, low-K profile "
+          f"{low}, round-5 low-K profile {low_r5}); under the device "
+          f"predicate (chunked 'auto', band and general each launched, "
+          f"one computing): {pred}")
+    for name, n in list(counts.items()) + list(pred.items()):
         if not n:
             raise AssertionError(f"{name} never launched on its path")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=counts[name], max_abs_err=errs[name],
                     **times[name], library_ms=None)
                for name in KERNELS]
+    for entry in kernels:
+        if entry["name"] in pred:
+            entry["launches_predicated"] = pred[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     _result()

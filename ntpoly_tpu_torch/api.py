@@ -364,8 +364,11 @@ class SolverParameters:
 
     def SetItersPerSync(self, value):
         """Iterations between host convergence checks (1 = the
-        reference's per-iteration semantics).  More than 1 needs the
-        chunked driver (ROADMAP Queue A item 7): the solvers raise."""
+        reference's per-iteration semantics).  With more, the nine loops
+        that the reference chunks run that many iterations per host read
+        (``solvers/common.run_chunked``; one CUDA graph a chunk on a
+        card with a grid of one rank), and may run up to that many
+        less one past convergence."""
         self._p.iters_per_sync = int(value)
 
     def SetMonitorConvergence(self, value):

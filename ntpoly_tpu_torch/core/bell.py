@@ -136,11 +136,16 @@ def merge(cols: Tensor, blocks: Tensor, k_out: int, threshold=0.0
     out = _slot_sum(slot[..., None] == ko, blocks)
     hit = (rank[..., None] == ko) & first[..., None]
     oc = torch.where(hit, cols[..., :, None].to(torch.int32),
-                     torch.tensor(EMPTY, dtype=torch.int32,
-                                  device=cols.device))
+                     torch.full((), EMPTY, dtype=torch.int32,
+                                device=cols.device))
     oc = oc.amin(dim=-2)
-    out = torch.where(out.abs() > threshold, out, out.new_zeros(()))
-    nm = block_norms(out)
+    # the flush in place, and the norms as one reduction: no temporary
+    # the size of the output (the k-way merges of a chunked solve run
+    # at its pinned capacity)
+    small = (out.abs() <= threshold) if out.is_complex() \
+        else (out <= threshold) & (out >= -threshold)
+    out.masked_fill_(small, 0.0)
+    nm = torch.linalg.vector_norm(out, 1, dim=(-1, -2))
     oc = torch.where(nm > 0, oc, oc.new_full((), EMPTY))
     return oc, out
 
@@ -185,16 +190,48 @@ def add(a_cols, a_blocks, b_cols, b_blocks, alpha=1.0, beta=1.0,
 def add_n(cols_list, blocks_list, coeffs, threshold=0.0,
           k_out: int | None = None) -> Tuple[Tensor, Tensor]:
     """sum_i coeffs[i] * M_i over N operands in ONE k-way merge.  Each
-    coefficient is rounded to the result dtype before it scales."""
+    coefficient is rounded to the result dtype before it scales.  The
+    merge's input, every operand's slots side by side, is built a block
+    of rows at a time, so that no temporary exceeds _ROW_BYTES (rows are
+    independent: the same bits as one pass)."""
     if k_out is None:
         k_out = max(c.shape[-1] for c in cols_list)
     dt = blocks_list[0].dtype
     for b in blocks_list[1:]:
         dt = torch.promote_types(dt, b.dtype)
+    first = blocks_list[0]
+    rows, bs = first.shape[-4], first.shape[-1]
+    width = sum(c.shape[-1] for c in cols_list)
+    step = _row_passes(rows, (width + k_out) * bs * bs
+                       * torch.empty((), dtype=dt).element_size())
+    if step >= rows:
+        return _add_rows(cols_list, blocks_list, coeffs, dt, threshold,
+                         k_out)
+    lead = first.shape[:-4]
+    oc = cols_list[0].new_empty(lead + (rows, k_out))
+    ob = first.new_empty(lead + (rows, k_out, bs, bs), dtype=dt)
+    for r0 in range(0, rows, step):
+        r1 = min(r0 + step, rows)
+        oc[..., r0:r1, :], ob[..., r0:r1, :, :, :] = _add_rows(
+            [c[..., r0:r1, :] for c in cols_list],
+            [b[..., r0:r1, :, :, :] for b in blocks_list], coeffs, dt,
+            threshold, k_out)
+    return oc, ob
+
+
+def _add_rows(cols_list, blocks_list, coeffs, dt, threshold, k_out):
+    """:func:`add_n` on whole rows: each operand scaled straight into its
+    part of the merge's input."""
     cols = torch.cat(list(cols_list), dim=-1)
-    blocks = torch.cat(
-        [b.to(dt) * torch.as_tensor(a, dtype=dt)
-         for b, a in zip(blocks_list, coeffs)], dim=-3)
+    first = blocks_list[0]
+    blocks = first.new_empty(first.shape[:-3] + (cols.shape[-1],)
+                             + first.shape[-2:], dtype=dt)
+    at = 0
+    for b, a in zip(blocks_list, coeffs):
+        w = b.shape[-3]
+        torch.mul(b.to(dt), torch.as_tensor(a, dtype=dt),
+                  out=blocks[..., at:at + w, :, :])
+        at += w
     return merge(cols, blocks, k_out, threshold)
 
 
@@ -290,8 +327,8 @@ def spgemm_candidates(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
         parts = torch.matmul(ab[:, :, None], bb.to(dt)) \
             * torch.as_tensor(alpha, dtype=dt)
         cand = torch.where(valid[..., None] & (bc != EMPTY), bc,
-                           torch.tensor(EMPTY, dtype=bc.dtype,
-                                        device=bc.device))
+                           torch.full((), EMPTY, dtype=bc.dtype,
+                                      device=bc.device))
         cc, cb = merge(cand.reshape(n, KA * KB),
                        parts.reshape(n, KA * KB, bs, bs), k_out, threshold)
         cols_out.append(cc)
@@ -412,13 +449,23 @@ def comp_sum(x: Tensor) -> Tensor:
 
 
 def col_abs_sums(cols: Tensor, blocks: Tensor, nbc: int) -> Tensor:
-    """Per-column sums of |v| over [R, K] slots -> [nbc, bs]."""
+    """Per-column sums of |v| over [R, K] slots -> [nbc, bs].
+
+    Every slot is added in slot order (an EMPTY slot adds zeros to
+    column 0, which leaves each sum's bits as they are): no
+    data-dependent shape and no host read, so a captured chunk can run
+    it.  On a CUDA tensor an accumulating ``index_put_`` sorts the
+    indices and sums each column in order, the same bits on every run,
+    where ``index_add_`` adds by atomics."""
     persl = blocks.abs().sum(dim=-2)                  # [R, K, bs]
     valid = cols != EMPTY
-    out = persl.new_zeros((nbc, persl.shape[-1]))
-    r, k = torch.nonzero(valid, as_tuple=True)
-    out.index_add_(0, cols[r, k].long(), persl[r, k])
-    return out
+    bs = persl.shape[-1]
+    idx = torch.where(valid, cols, 0).reshape(-1).long()
+    vals = (persl * valid[..., None].to(persl.dtype)).reshape(-1, bs)
+    out = persl.new_zeros((nbc, bs))
+    if out.is_cuda:
+        return out.index_put_((idx,), vals, accumulate=True)
+    return out.index_add_(0, idx, vals)
 
 
 def diagonal_scale(cols: Tensor, blocks: Tensor, dvec_rows=None,

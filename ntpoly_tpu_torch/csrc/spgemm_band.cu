@@ -30,6 +30,12 @@
 // at 3.35 TB/s (the split pass adds 5.4 GB of its own, ~1.6 ms); 'bf16'
 // the bytes, 2.24 ms.
 //
+// `run` (every entry): a device int, or null.  When it holds 0, every
+// block returns before any load and out and norms keep what they held:
+// inside a chunked solve (solvers/common.py) the band and general
+// kernels both launch on one output, and the predicate, computed on the
+// device, picks the one that writes it, with no host read.
+//
 // Design: output-stationary, no atomics, grid order slot-fastest (tile =
 // r * k_out + t) so that the blocks sharing A[r, .] run together and A
 // comes from L2, not once per slot from HBM.  'highest': one thread block
@@ -130,24 +136,26 @@ extern "C" {
 
 int ntp_spgemm_band_f32(const void* a_cols, const void* a_blocks,
                         const void* b_cols, const void* b_blocks,
-                        const void* gg0, void* out, void* norms, int rows,
+                        const void* gg0, void* out, void* norms,
+                        const void* run, int rows,
                         int ka, int kb, int k_out, int span, int bs,
                         double alpha, double threshold, void* stream) {
   return ntp::launch_pairs<float>(
       ntp::BandSlots{ntp::band_shape(a_cols, b_cols, gg0, ka, kb, span)},
       a_blocks, b_blocks, out, norms, rows, k_out, bs, alpha, threshold,
-      stream);
+      run, stream);
 }
 
 int ntp_spgemm_band_f64(const void* a_cols, const void* a_blocks,
                         const void* b_cols, const void* b_blocks,
-                        const void* gg0, void* out, void* norms, int rows,
+                        const void* gg0, void* out, void* norms,
+                        const void* run, int rows,
                         int ka, int kb, int k_out, int span, int bs,
                         double alpha, double threshold, void* stream) {
   return ntp::launch_pairs<double>(
       ntp::BandSlots{ntp::band_shape(a_cols, b_cols, gg0, ka, kb, span)},
       a_blocks, b_blocks, out, norms, rows, k_out, bs, alpha, threshold,
-      stream);
+      run, stream);
 }
 
 // 'high' (a_lo and b_lo given) or 'bf16' (both null) on the bfloat16
@@ -155,15 +163,16 @@ int ntp_spgemm_band_f64(const void* a_cols, const void* a_blocks,
 int ntp_spgemm_band_tc(const void* a_cols, const void* a_hi,
                        const void* a_lo, const void* b_cols,
                        const void* b_hi, const void* b_lo, const void* gg0,
-                       void* out, void* norms, int rows, int ka, int kb,
-                       int nbk, int k_out, int span, int bs, double alpha,
-                       double threshold, void* stream) {
+                       void* out, void* norms, const void* run, int rows,
+                       int ka, int kb, int nbk, int k_out, int span, int bs,
+                       double alpha, double threshold, void* stream) {
   const ntp::tc::Pairs<ntp::BandCandidates> src{
       {ntp::band_shape(a_cols, b_cols, gg0, ka, kb, span)}, k_out};
   const ntp::tc::Params p{static_cast<float*>(out),
                           static_cast<float*>(norms),
                           int64_t(rows) * k_out, bs, float(alpha),
-                          float(threshold)};
+                          float(threshold),
+                          static_cast<const int*>(run)};
   return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo,
                          int64_t(nbk) * kb, bs, src, p, stream);
 }

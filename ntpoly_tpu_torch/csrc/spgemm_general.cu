@@ -27,6 +27,9 @@
 // the three bf16 products, whichever is larger, plus the split pass's
 // bytes.
 //
+// `run` (every entry): a device int, or null; when it holds 0 every block
+// returns before any load (the band kernel's `run`, spgemm_band.cu).
+//
 // Design: output-stationary, no atomics, no second pass, no row chunking
 // (the TPU's chunking existed for its scalar-memory limits).  Grid order
 // slot-fastest (tile = r * k_out + g), so the blocks of one row run
@@ -74,21 +77,23 @@ extern "C" {
 int ntp_spgemm_general_f32(const void* a_cols, const void* a_blocks,
                            const void* b_cols, const void* b_blocks,
                            const void* plan, void* out, void* norms,
-                           int rows, int ka, int kb, int k_out, int bs,
-                           double alpha, double threshold, void* stream) {
+                           const void* run, int rows, int ka, int kb,
+                           int k_out, int bs, double alpha,
+                           double threshold, void* stream) {
   return ntp::launch_pairs<float>(
       ntp::general_index(a_cols, b_cols, plan, ka, kb), a_blocks, b_blocks,
-      out, norms, rows, k_out, bs, alpha, threshold, stream);
+      out, norms, rows, k_out, bs, alpha, threshold, run, stream);
 }
 
 int ntp_spgemm_general_f64(const void* a_cols, const void* a_blocks,
                            const void* b_cols, const void* b_blocks,
                            const void* plan, void* out, void* norms,
-                           int rows, int ka, int kb, int k_out, int bs,
-                           double alpha, double threshold, void* stream) {
+                           const void* run, int rows, int ka, int kb,
+                           int k_out, int bs, double alpha,
+                           double threshold, void* stream) {
   return ntp::launch_pairs<double>(
       ntp::general_index(a_cols, b_cols, plan, ka, kb), a_blocks, b_blocks,
-      out, norms, rows, k_out, bs, alpha, threshold, stream);
+      out, norms, rows, k_out, bs, alpha, threshold, run, stream);
 }
 
 // 'high' (a_lo and b_lo given) or 'bf16' (both null) on the bfloat16
@@ -97,15 +102,16 @@ int ntp_spgemm_general_tc(const void* a_cols, const void* a_hi,
                           const void* a_lo, const void* b_cols,
                           const void* b_hi, const void* b_lo,
                           const void* plan, void* out, void* norms,
-                          int rows, int ka, int kb, int nbk, int k_out,
-                          int bs, double alpha, double threshold,
-                          void* stream) {
+                          const void* run, int rows, int ka, int kb,
+                          int nbk, int k_out, int bs, double alpha,
+                          double threshold, void* stream) {
   const ntp::tc::Pairs<ntp::GeneralIndex> src{
       ntp::general_index(a_cols, b_cols, plan, ka, kb), k_out};
   const ntp::tc::Params p{static_cast<float*>(out),
                           static_cast<float*>(norms),
                           int64_t(rows) * k_out, bs, float(alpha),
-                          float(threshold)};
+                          float(threshold),
+                          static_cast<const int*>(run)};
   return ntp::tc::launch(a_hi, a_lo, int64_t(rows) * ka, b_hi, b_lo,
                          int64_t(nbk) * kb, bs, src, p, stream);
 }

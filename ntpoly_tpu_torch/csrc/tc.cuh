@@ -72,6 +72,9 @@ struct Params {
   int64_t tiles;
   int bs;
   float alpha, threshold;
+  // a device predicate: when given and 0, every block returns before
+  // any load and the outputs are left as they were
+  const int* run = nullptr;
 };
 
 // ---------------------------------------------------------------------------
@@ -279,6 +282,7 @@ product_kernel(const __grid_constant__ Maps maps, const Src src,
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   __shared__ int info[kStages];
+  if (p.run != nullptr && *p.run == 0) return;
   // per consumer warp: its block sum, or its sums of each column
   __shared__ float red[2][kConsumers / 32][kColNorms ? kTile : 1];
   unsigned char* ring =
@@ -524,7 +528,10 @@ template <class Src, bool kSplit, bool kColNorms>
 int launch_kernel(const Maps& maps, const Src& src, const Params& p,
                   cudaStream_t st) {
   auto* kernel = product_kernel<Src, kSplit, kColNorms>;
-  if (int err = allow_smem(kernel, kSmem)) return err;
+  // once per instance, so that a launch inside a CUDA graph capture
+  // makes no attribute call
+  static const int smem_err = allow_smem(kernel, kSmem);
+  if (smem_err) return smem_err;
   const int grid =
       static_cast<int>(std::min<int64_t>(p.tiles, sm_count()));
   kernel<<<grid, kThreadsTc, kSmem, st>>>(maps, src, p);

@@ -529,9 +529,11 @@ template <typename T, int TS, class Index>
 __global__ void __launch_bounds__(kThreads, (Tile<T, TS>::kMinBlocks))
 pair_kernel(Index idx, const T* __restrict__ a_blocks,
             const T* __restrict__ b_blocks, T* __restrict__ out,
-            T* __restrict__ norms, int k_out, int bs, T alpha, T threshold) {
+            T* __restrict__ norms, int k_out, int bs, T alpha, T threshold,
+            const int* __restrict__ run) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T red[kThreads / 32];
+  if (run != nullptr && *run == 0) return;
   const int64_t tile = blockIdx.x;
   const PairWork<T, Index> work{idx,  a_blocks, b_blocks,
                                 out,  norms,    tile / k_out,
@@ -540,12 +542,14 @@ pair_kernel(Index idx, const T* __restrict__ a_blocks,
                            reinterpret_cast<Stage<T, TS>*>(smem), red);
 }
 
+// `run`: a device predicate, or null; when it holds 0 every block returns
+// before any load and out and norms are left as they were.
 // -> cudaError_t
 template <typename T, class Index>
 int launch_pairs(const Index& idx, const void* a_blocks,
                  const void* b_blocks, void* out, void* norms, int rows,
                  int k_out, int bs, double alpha, double threshold,
-                 void* stream) {
+                 const void* run, void* stream) {
   if (rows == 0 || k_out == 0) return 0;
   const unsigned tiles = unsigned(rows) * unsigned(k_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -553,11 +557,13 @@ int launch_pairs(const Index& idx, const void* a_blocks,
   {                                                                        \
     const int smem = ring_bytes<T, TS>();                                  \
     auto* kernel = pair_kernel<T, TS, Index>;                              \
-    if (int err = allow_smem(kernel, smem)) return err;                    \
+    static const int smem_err = allow_smem(kernel, smem);                  \
+    if (smem_err) return smem_err;                                         \
     kernel<<<tiles, kThreads, smem, st>>>(                                 \
         idx, static_cast<const T*>(a_blocks),                              \
         static_cast<const T*>(b_blocks), static_cast<T*>(out),             \
-        static_cast<T*>(norms), k_out, bs, T(alpha), T(threshold));        \
+        static_cast<T*>(norms), k_out, bs, T(alpha), T(threshold),         \
+        static_cast<const int*>(run));                                     \
   }
   switch (tile_for(bs)) {
     case 16: NTP_PAIRS(16); break;

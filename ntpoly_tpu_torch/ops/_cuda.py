@@ -33,10 +33,11 @@ _REAL = ("_f32", "_f64")
 # name -> (argtypes, dtype suffixes of its instances); every entry
 # returns a cudaError_t as int
 _SIGNATURES = {
-    "ntp_spgemm_general": ((_P,) * 7 + (_I,) * 5 + (_D, _D, _P), _REAL),
-    "ntp_spgemm_general_tc": ((_P,) * 9 + (_I,) * 6 + (_D, _D, _P), ("",)),
-    "ntp_spgemm_band": ((_P,) * 7 + (_I,) * 6 + (_D, _D, _P), _REAL),
-    "ntp_spgemm_band_tc": ((_P,) * 9 + (_I,) * 7 + (_D, _D, _P), ("",)),
+    "ntp_spgemm_general": ((_P,) * 8 + (_I,) * 5 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_general_tc": ((_P,) * 10 + (_I,) * 6 + (_D, _D, _P),
+                              ("",)),
+    "ntp_spgemm_band": ((_P,) * 8 + (_I,) * 6 + (_D, _D, _P), _REAL),
+    "ntp_spgemm_band_tc": ((_P,) * 10 + (_I,) * 7 + (_D, _D, _P), ("",)),
     "ntp_split_bf16": ((_P,) * 3 + (_L, _P), ("",)),
     "ntp_spgemm_stream": ((_P,) * 6 + (_I,) * 6 + (_D, _D, _P), _REAL),
     "ntp_spgemm_window": ((_P,) * 7 + (_I,) * 8 + (_D, _D, _P), _REAL),

@@ -65,9 +65,12 @@ from ..config import EMPTY
 
 Tensor = torch.Tensor
 
-# kernel launches per wrapper (reset with reset_launches)
+# kernel launches per wrapper (reset with reset_launches); a launch under
+# a device predicate (``run``), whose blocks may all return unread,
+# counts under the kernel's name with "_pred" appended
 launches = {"spgemm_general": 0, "spgemm_band": 0, "spgemm_stream": 0,
-            "spgemm_window": 0, "spgemm_uniform": 0, "split_bf16": 0}
+            "spgemm_window": 0, "spgemm_uniform": 0, "split_bf16": 0,
+            "spgemm_band_pred": 0, "spgemm_general_pred": 0}
 
 
 def reset_launches() -> None:
@@ -151,7 +154,7 @@ def band_plan(a_cols: Tensor, b_cols: Tensor, k_out: int,
     NBK, KB = b_cols.shape
     span = k_out if span is None else span
     width = min(span, k_out)
-    big = torch.tensor(EMPTY, dtype=torch.int64, device=a_cols.device)
+    big = torch.full((), EMPTY, dtype=torch.int64, device=a_cols.device)
     bc = b_cols.long()
     t_idx = torch.arange(KB, device=bc.device)
     validb = b_cols != EMPTY
@@ -321,33 +324,47 @@ def _plain(a_cols, a_blocks, kb, b_of, slot_of, cut, k_out, alpha,
     return _epilogue(acc, alpha, threshold)
 
 
+def _chosen(run, out, blocks: Tensor, norms: Tensor):
+    """The plain side of a launch under the device predicate ``run``:
+    (blocks, norms) where run is nonzero, else ``out`` untouched, as the
+    kernel leaves its output buffers when every block returns."""
+    if run is None:
+        return blocks, norms
+    keep = run.reshape(()) != 0
+    return (torch.where(keep, blocks, out[0]),
+            torch.where(keep, norms, out[1]))
+
+
 def spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks, plan, *,
                          k_out: int, alpha: float, threshold: float,
-                         precision: str = "highest"):
+                         precision: str = "highest", run=None, out=None):
     """Plain version of the general kernel: output slot
     plan[r, s*KB + t] receives A[r, s] @ B[acols[r, s], t] (dropped when
     >= k_out) at ``kernel_tier``, then the prune epilogue.  -> (blocks
-    [R, k_out, bs, bs], norms [R, k_out])."""
+    [R, k_out, bs, bs], norms [R, k_out]); with the predicate ``run``
+    (an int tensor) 0, ``out`` as given (``_chosen``)."""
     KB = b_cols.shape[1]
-    return _plain(a_cols, a_blocks, KB,
-                  lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
-                  lambda s, t: plan[:, s * KB + t].long(), k_out, k_out,
-                  alpha, threshold,
-                  tier=kernel_tier(a_blocks.dtype, precision))
+    return _chosen(run, out, *_plain(
+        a_cols, a_blocks, KB,
+        lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
+        lambda s, t: plan[:, s * KB + t].long(), k_out, k_out,
+        alpha, threshold, tier=kernel_tier(a_blocks.dtype, precision)))
 
 
 def spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0, *,
                       k_out: int, span: int, alpha: float,
-                      threshold: float, precision: str = "highest"):
+                      threshold: float, precision: str = "highest",
+                      run=None, out=None):
     """Plain version of the band kernel: output slot t < span of row r
     receives A[r, s] @ B[acols[r, s], t - gg0[r, s]] for every valid A
     slot s with 0 <= t - gg0 < KB, at ``kernel_tier``; slots >= span are
-    zero.  -> (blocks [R, k_out, bs, bs], norms [R, k_out])."""
-    return _plain(a_cols, a_blocks, b_cols.shape[1],
-                  lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
-                  lambda s, t: gg0[:, s].long() + t, span, k_out,
-                  alpha, threshold,
-                  tier=kernel_tier(a_blocks.dtype, precision))
+    zero.  -> (blocks [R, k_out, bs, bs], norms [R, k_out]); with the
+    predicate ``run`` 0, ``out`` as given (``_chosen``)."""
+    return _chosen(run, out, *_plain(
+        a_cols, a_blocks, b_cols.shape[1],
+        lambda s, t: _masked_b(a_cols[:, s], b_cols, b_blocks, t),
+        lambda s, t: gg0[:, s].long() + t, span, k_out,
+        alpha, threshold, tier=kernel_tier(a_blocks.dtype, precision)))
 
 
 def spgemm_stream_plain(a_cols, a_blocks, panel, plan, *, kb: int,
@@ -653,13 +670,18 @@ def _planes(ab: Tensor, bb: Tensor, tier: str):
 
 
 def _run_kernel(name, a_cols, a_blocks, b_cols, b_blocks, idx, want,
-                tail, precision, alpha, threshold, planes=None):
+                tail, precision, alpha, threshold, planes=None, *,
+                run=None, out=None):
     """Check and launch the band or general kernel ``name`` (``idx``:
     its gg0 or plan, of shape ``want``) at ``kernel_tier``: the exact
     instance of the operands' dtype, or the split pass and the
     tensor-core product (float32 out).  ``tail``: the C entry's ints
     after (R, KA, KB[, NBK]).  ``planes``: the ``split_bf16`` planes of
-    A and B, split already, for timing the product alone."""
+    A and B, split already (for timing the product alone, and so that
+    the two launches of a predicated multiply split once).  ``run``: a
+    device predicate (int32, one element) under which the kernel writes
+    ``out`` (its (blocks, norms) buffers) only where run is nonzero;
+    such a launch counts under ``name + '_pred'``."""
     ac, ab, bc, bb, ix = _check_operands(a_cols, a_blocks, b_cols,
                                          b_blocks, idx)
     R, KA = ac.shape
@@ -671,55 +693,79 @@ def _run_kernel(name, a_cols, a_blocks, b_cols, b_blocks, idx, want,
         raise ValueError("A and B must start on 16 bytes")
     tier = kernel_tier(ab.dtype, precision)
     k_out = tail[0]
-    out = ab.new_empty((R, k_out, bs, bs))
-    nrm = ab.new_empty((R, k_out))
+    key = name
+    if run is None:
+        out = ab.new_empty((R, k_out, bs, bs))
+        nrm = ab.new_empty((R, k_out))
+    else:
+        out, nrm = out
+        if (run.device != ab.device or run.dtype != torch.int32
+                or run.numel() != 1):
+            raise ValueError("run must be one int32 on A's device")
+        if (tuple(out.shape) != (R, k_out, bs, bs)
+                or tuple(nrm.shape) != (R, k_out) or out.dtype != ab.dtype
+                or nrm.dtype != ab.dtype or not out.is_contiguous()
+                or not nrm.is_contiguous() or out.device != ab.device
+                or nrm.device != ab.device):
+            raise ValueError("out must be contiguous [R, k_out, bs, bs] "
+                             "blocks and [R, k_out] norms of A's dtype "
+                             "on A's device")
+        key = name + "_pred"
     if tier == "highest":
-        _launch(f"ntp_{name}{_SUFFIX[ab.dtype]}", name,
-                (ac, ab, bc, bb, ix, out, nrm), (R, KA, KB, *tail),
+        _launch(f"ntp_{name}{_SUFFIX[ab.dtype]}", key,
+                (ac, ab, bc, bb, ix, out, nrm, run), (R, KA, KB, *tail),
                 (alpha, threshold))
     else:
         (ah, al), (bh, bl) = planes or _planes(ab, bb, tier)
-        _launch(f"ntp_{name}_tc", name,
-                (ac, ah, al, bc, bh, bl, ix, out, nrm),
+        _launch(f"ntp_{name}_tc", key,
+                (ac, ah, al, bc, bh, bl, ix, out, nrm, run),
                 (R, KA, KB, NBK, *tail), (alpha, threshold))
     return out, nrm
 
 
 def spgemm_general(a_cols, a_blocks, b_cols, b_blocks, plan, *,
                    k_out: int, alpha: float, threshold: float,
-                   precision: str = "highest"):
+                   precision: str = "highest", run=None, out=None,
+                   planes=None):
     """General kernel (``csrc/spgemm_general.cu``) on CUDA tensors at
     ``kernel_tier`` (float32 'high' and 'bf16': the split pass, then the
-    tensor cores), its plain version on CPU tensors."""
+    tensor cores), its plain version on CPU tensors.  With ``run`` (one
+    int32 on the device) and ``out`` ((blocks, norms) buffers), the
+    product is written into ``out`` only where run is nonzero
+    (``_run_kernel``); ``planes``: A's and B's split planes."""
     if a_blocks.device.type == "cpu":
         return spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks,
                                     plan, k_out=k_out, alpha=alpha,
-                                    threshold=threshold, precision=precision)
+                                    threshold=threshold, precision=precision,
+                                    run=run, out=out)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     R, KA = a_cols.shape
     return _run_kernel("spgemm_general", a_cols, a_blocks, b_cols, b_blocks,
                        plan, (R, KA * b_cols.shape[1]),
                        (k_out, a_blocks.shape[-1]), precision, alpha,
-                       threshold)
+                       threshold, planes, run=run, out=out)
 
 
 def spgemm_band(a_cols, a_blocks, b_cols, b_blocks, gg0, *, k_out: int,
                 span: int, alpha: float, threshold: float,
-                precision: str = "highest"):
+                precision: str = "highest", run=None, out=None,
+                planes=None):
     """Band kernel (``csrc/spgemm_band.cu``) on CUDA tensors at
     ``kernel_tier`` (float32 'high' and 'bf16': the split pass, then the
-    tensor cores), its plain version on CPU tensors."""
+    tensor cores), its plain version on CPU tensors; ``run``, ``out``
+    and ``planes`` as :func:`spgemm_general`'s."""
     if a_blocks.device.type == "cpu":
         return spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0,
                                  k_out=k_out, span=span, alpha=alpha,
-                                 threshold=threshold, precision=precision)
+                                 threshold=threshold, precision=precision,
+                                 run=run, out=out)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     return _run_kernel("spgemm_band", a_cols, a_blocks, b_cols, b_blocks,
                        gg0, tuple(a_cols.shape),
                        (k_out, span, a_blocks.shape[-1]), precision, alpha,
-                       threshold)
+                       threshold, planes, run=run, out=out)
 
 
 def spgemm_stream(a_cols, a_blocks, panel, plan, *, kb: int, k_out: int,
@@ -877,9 +923,17 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     kept; slots whose block flushed to zero are EMPTY in place.
 
     band_mode: 'auto' runs the band kernel when the band plan holds and
-    the general kernel otherwise; 'force' runs only the band kernel (the
-    general one outside its regime, with a warning), and a violated band
-    assumption poisons ucnt to EMPTY; 'off' never uses the band kernel.
+    the general kernel otherwise, reading that choice back to the host
+    (one scalar) so that only one kernel launches; 'select' makes the
+    same choice on the device, as the reference's ``lax.cond``
+    (spgemm_pallas.py:1082): both kernels launch on one output buffer
+    under a device predicate (``run``), the unchosen one's blocks
+    returning before any load, and nothing is read back, so that a
+    chunk of solver iterations (``solvers/common.run_chunked``) runs,
+    and is captured in a CUDA graph, with no host read; 'force' runs
+    only the band kernel (the general one outside its regime, with a
+    warning), and a violated band assumption poisons ucnt to EMPTY;
+    'off' never uses the band kernel.
 
     precision: the kernels' tier (``kernel_tier``), as the reference's
     kernels run it: for float32 blocks 'high' is the bfloat16 hi/lo
@@ -887,11 +941,14 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     operands rounded to bfloat16 ('default' is the TPU's one bf16 pass),
     both on the tensor cores; 'highest' is exact, as is float64 at every
     tier.  alpha and threshold are rounded to float32 first, as the
-    reference does.
+    reference does.  alpha may be a 0-d tensor on the device (a chunked
+    solve's scalar): the kernels then run at alpha 1 and threshold 0,
+    and the prune epilogue (alpha, the flush) follows in torch with the
+    same arithmetic as the kernels' epilogue.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
-    if band_mode not in ("auto", "force", "off"):
+    if band_mode not in ("auto", "select", "force", "off"):
         raise ValueError(f"band_mode {band_mode!r}")
     R, KA = a_cols.shape
     NBK, KB = b_cols.shape
@@ -899,10 +956,16 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     if dt.is_complex:
         raise TypeError("the SpGEMM kernels are real-only")
     plan, occp, ucnt = structure_plan(a_cols, b_cols, k_out)
-    alpha = float(np.float32(alpha))
     threshold = float(np.float32(threshold))
+    alpha_dev = None
+    if isinstance(alpha, torch.Tensor):
+        alpha_dev = alpha.to(torch.float32).to(dt)
+        alpha, kernel_threshold = 1.0, 0.0
+    else:
+        alpha = float(np.float32(alpha))
+        kernel_threshold = threshold
     args = (a_cols, a_blocks.to(dt), b_cols, b_blocks.to(dt))
-    kw = dict(k_out=k_out, alpha=alpha, threshold=threshold,
+    kw = dict(k_out=k_out, alpha=alpha, threshold=kernel_threshold,
               precision=precision)
 
     g_rows, wv4 = _v4_pick(KA, KB, k_out, R, NBK)
@@ -921,12 +984,14 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
         span = _v4_span(KA, KB, k_out)
         gg0, occ0, band_ok = band_plan(a_cols, b_cols, k_out, span=span)
         use_band = (width <= wv4) & band_ok
-        # 'auto' reads the choice back to the host (one scalar per
-        # multiply) so that only one of the two kernels launches
-        if band_mode == "force" or bool(use_band):
+        occ_band = occ0[:, None] + torch.arange(
+            k_out, dtype=torch.int32, device=occ0.device)
+        if band_mode == "select":
+            cb, nm = _select(args, gg0, plan, use_band, span, kw)
+            occ_used = torch.where(use_band, occ_band, occp)
+        elif band_mode == "force" or bool(use_band):
             cb, nm = spgemm_band(*args, gg0, span=span, **kw)
-            occ_used = occ0[:, None] + torch.arange(
-                k_out, dtype=torch.int32, device=occ0.device)
+            occ_used = occ_band
             if band_mode == "force":
                 ucnt = torch.where(use_band, ucnt,
                                    ucnt.new_full((), EMPTY))
@@ -934,5 +999,29 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
             cb, nm = spgemm_general(*args, plan, **kw)
     else:
         cb, nm = spgemm_general(*args, plan, **kw)
+    if alpha_dev is not None:
+        cb, nm = _epilogue(cb, alpha_dev, threshold)
     cc = torch.where(nm > 0, occ_used, occ_used.new_full((), EMPTY))
     return cc, cb, ucnt
+
+
+def _select(args, gg0, plan, use_band, span, kw):
+    """The band and general kernels on one output buffer, each under its
+    side of the device predicate ``use_band`` (band_mode 'select'); on
+    the tensor-core tiers A and B are split once for both."""
+    a_cols, ab, b_cols, bb = args
+    R, bs = a_cols.shape[0], ab.shape[-1]
+    shape = (R, kw["k_out"], bs, bs)
+    cuda = ab.device.type == "cuda"
+    new = torch.empty if cuda else torch.zeros
+    out = (new(shape, dtype=ab.dtype, device=ab.device),
+           new(shape[:2], dtype=ab.dtype, device=ab.device))
+    planes = None
+    tier = kernel_tier(ab.dtype, kw["precision"])
+    if cuda and tier != "highest":
+        planes = _planes(ab.contiguous(), bb.contiguous(), tier)
+    run = use_band.to(torch.int32).reshape(1)
+    out = spgemm_band(*args, gg0, span=span, run=run, out=out,
+                      planes=planes, **kw)
+    return spgemm_general(*args, plan, run=1 - run, out=out, planes=planes,
+                          **kw)

@@ -57,7 +57,7 @@ def capacity_policy(k_out: int | None = None,
                     on_overflow: str | None = None,
                     precision: str | None = None,
                     method: str | None = None, defer: bool = False,
-                    verbose: bool = False):
+                    verbose: bool = False, collect: list | None = None):
     """Ambient capacity defaults for matmul/increment.
 
     Solvers install this from SolverParameters.  ``defer``: overflow and
@@ -66,12 +66,22 @@ def capacity_policy(k_out: int | None = None,
     sync by :func:`drain_deferred_checks` when the policy exits.
     ``verbose``: a multiply that grows past the pinned ``k_out`` writes
     "capacity regrown" to the YAML log, as the reference's chunked
-    solves (``run_chunked``) do when their pin overflows."""
+    solves (``run_chunked``) do when their pin overflows.
+
+    ``collect``: a list to which every capacity-bounded op (``matmul``,
+    ``increment``, ``increment_n``) appends its exact structural fill,
+    a 0-d int32 tensor on the device.  Under a collecting policy no op
+    reads a device value to the host: capacities stay as the policy
+    pins them (with ``on_overflow='truncate'``), and 'auto' picks the
+    band or general kernel on the device (``sp.spgemm``'s 'select').
+    The chunked solver driver (``solvers/common.run_chunked``) runs its
+    steps so and reads the largest fill once per chunk, so that a
+    truncation is detected, never silent."""
     names = ("k_out", "on_overflow", "precision", "method", "defer",
-             "verbose")
+             "verbose", "collect")
     prev = tuple(_policy_get(n) for n in names)
     for n, v in zip(names, (k_out, on_overflow, precision, method,
-                            defer, verbose)):
+                            defer, verbose, collect)):
         setattr(_policy, n, v)
     try:
         yield
@@ -172,10 +182,13 @@ def _gather_slices(g, cc, cb):
 
 
 def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
-           method: str, want_fill: bool, precision: str):
+           method: str, want_fill: bool, precision: str,
+           select: bool = False):
     """The 3D SUMMA (reference ``_summa``, algebra.py:183-279): returns
     this rank's (cc, cb) and stats = [structural fill, max used slot],
-    the max over the grid, as one device tensor."""
+    the max over the grid, as one device tensor.  ``select``: the
+    kernels' 'auto' choice is made on the device (``sp.spgemm``'s
+    'select'), with no host read."""
     g = a.grid
     S = g.slices
     wt = threshold / (S * 1000.0) if S > 1 else threshold
@@ -209,13 +222,14 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
         cc, cb, bucnt = sp.spgemm(agc, agb, bgc, bgb, k_out=k_run,
                                   threshold=wt, alpha=alpha,
                                   precision=precision,
-                                  band_mode="force" if band else "auto")
+                                  band_mode="force" if band else
+                                  "select" if select else "auto")
         if band and k_run > k_out:
             bad = bucnt.amax() >= EMPTY
             cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
             cc, cb = bell.compact(cc, cb, k_out)
-            fill = torch.where(bad, torch.tensor(EMPTY, dtype=torch.int32,
-                                                 device=dev), cnt)
+            fill = torch.where(bad, torch.full((), EMPTY, dtype=torch.int32,
+                                               device=dev), cnt)
             compacted = True
         elif band:
             fill = torch.maximum(fill, bucnt.amax())
@@ -327,6 +341,7 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
     k_out = min(k_out or _policy_get("k_out") or max(a.k, b.k), cap)
     on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
     precision = precision or _policy_get("precision") or "high"
+    collector = _policy_get("collect")
     requested = method
     grow = on_overflow == "grow"
     while True:
@@ -337,9 +352,14 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
         band = method == "pallas_band"
         # as in the reference, eager 'warn' without the band method
         # does not measure the structural fill (ROADMAP Queue C)
+        chunk = collector is not None
         cc, cb, stats = _summa(a, b, alpha, threshold, k_out=k_out,
-                               method=method, want_fill=grow or band,
-                               precision=precision)
+                               method=method,
+                               want_fill=grow or band or chunk,
+                               precision=precision, select=chunk)
+        if chunk:
+            collector.append(stats[0])        # no host read in a chunk
+            break
         growing = grow and k_out < cap
         if not growing and not band and on_overflow != "warn":
             break                         # nothing reads the stats
@@ -403,16 +423,21 @@ def increment(a: PSMatrix, b: PSMatrix, alpha=1.0, beta=1.0, threshold=0.0,
 
 def increment_n(mats, coeffs, threshold=0.0, k_out: int | None = None,
                 on_overflow: str | None = None) -> PSMatrix:
-    """sum_i coeffs[i] * M_i in ONE fused k-way merge.  Capacity policy
-    as :func:`matmul`: 'grow' reads the fill back (regrow + trim), 'warn'
-    warns (deferred under a deferring policy), 'truncate'/'ignore' never
-    sync."""
+    """sum_i coeffs[i] * M_i in ONE fused k-way merge; a coefficient may
+    be a 0-d tensor on the device.  Capacity policy as :func:`matmul`:
+    'grow' reads the fill back (regrow + trim), 'warn' warns (deferred
+    under a deferring policy), 'truncate'/'ignore' never sync, and a
+    collecting policy takes the fill as a device scalar."""
     mats = tuple(mats)
     cap = mats[0].panel_nb
     k = min(k_out or _policy_get("k_out") or max(m.k for m in mats), cap)
     on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
+    collector = _policy_get("collect")
     while True:
         out, stats = _increment_n(mats, tuple(coeffs), threshold, k)
+        if collector is not None:
+            collector.append(stats[0])
+            return out
         if on_overflow in ("truncate", "ignore"):
             return out
         if on_overflow == "warn":
@@ -435,6 +460,7 @@ def increment_n(mats, coeffs, threshold=0.0, k_out: int | None = None,
 
 
 def scale(a: PSMatrix, c) -> PSMatrix:
+    """c * A; ``c`` a number or a 0-d tensor on A's device."""
     return a.with_data(a.col_ids,
                        a.blocks * torch.as_tensor(c, dtype=a.dtype))
 

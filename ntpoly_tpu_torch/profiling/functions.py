@@ -131,7 +131,9 @@ def _counted(out: dict):
     kernel launches and ``alg.matmul`` calls count from 0; on exit
     ``out`` holds the 'Total Iterations' of every solve in the log (a
     list: nested solves log their own; LOBPCG logs 'Iterations'), the
-    multiplies and the launches."""
+    multiplies, the launches of every wrapper and the pinned capacities
+    to which chunked solves regrew ("capacity regrown ... chunk
+    redone")."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "solve.yaml")
         activate_logger(path)
@@ -146,8 +148,9 @@ def _counted(out: dict):
     out["iterations"] = [int(v) for v in re.findall(
         r"^ *(?:Total )?Iterations: (\d+)$", log, re.M)]
     out["multiplies"] = alg.multiplies["matmul"]
-    out["launches"] = {k: sp.launches[k] for k in
-                       ("spgemm_band", "spgemm_general", "split_bf16")}
+    out["pins"] = [int(k) for k in re.findall(
+        r"capacity regrown to (\d+) \(fill \d+\); chunk redone", log)]
+    out["launches"] = dict(sp.launches)
 
 
 def _device_seconds(prof) -> dict:

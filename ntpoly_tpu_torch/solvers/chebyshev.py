@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, maybe_permute, maybe_unpermute,
-                     identity_like, eager_only)
+                     identity_like)
 from .parameters import SolverParameters
 
 
@@ -28,7 +28,6 @@ def compute(mat, poly: ChebyshevPolynomial,
             params: SolverParameters | None = None):
     """sum_k c_k T_k(A) by the three-term recurrence."""
     params, _ = resolve(params)
-    eager_only(params)
     thr = params.threshold
     c = poly.coefficients
     degree = len(c)
@@ -55,7 +54,6 @@ def factorized_compute(mat, poly: ChebyshevPolynomial,
                        params: SolverParameters | None = None):
     """sum_k c_k T_k(A) by the recursive split over T_(2^i)."""
     params, _ = resolve(params)
-    eager_only(params)
     c = list(poly.coefficients)
     degree = len(c)
     with solver_log(params, "Chebyshev Solver", "Recursive",

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import algebra as alg
-from .common import resolve, solver_log, iteration_log, eager_only
+from .common import resolve, solver_log, iteration_log
 from .parameters import SolverParameters
 
 
@@ -29,7 +29,6 @@ def power_bounds(mat, params: SolverParameters | None = None) -> float:
     if params is None:
         params = SolverParameters(max_iterations=10)
     params, monitor = resolve(params)
-    eager_only(params)
 
     with solver_log(params, "Power Bounds Solver"):
         x = torch.full((mat.logical_dim,), 1.0 / mat.dim, dtype=mat.dtype,

@@ -22,7 +22,7 @@ import torch
 from ..parallel import algebra as alg
 from . import chebyshev
 from .common import (resolve, solver_log, maybe_permute, maybe_unpermute,
-                     identity_like, eager_only)
+                     identity_like)
 from .eigenbounds import power_bounds
 from .parameters import SolverParameters
 
@@ -70,7 +70,6 @@ def _square(out, counter, params):
 def compute_exponential(mat, params: SolverParameters | None = None):
     """exp(A) by Chebyshev and scale-and-square."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Exponential Solver", "Chebyshev"):
         psub = params.copy()
         psub.max_iterations = 10
@@ -90,7 +89,6 @@ def compute_exponential_pade(mat, params: SolverParameters | None = None):
     solved by CG, and squaring."""
     from .linear import cg_solver
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Exponential Solver", "Pade"):
         imat = identity_like(mat)
         sigma, counter = _scale_squaring_count(float(alg.norm(mat)))
@@ -129,7 +127,6 @@ def compute_exponential_taylor(mat, params: SolverParameters | None = None):
     radius 3e-8 lies below the unit roundoff, so I + A / sigma keeps
     little of A there."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Exponential Solver", "Taylor"):
         psub = params.copy()
         psub.max_iterations = 10
@@ -153,7 +150,6 @@ def compute_logarithm(mat, params: SolverParameters | None = None):
     positive Gershgorin lower edge, that edge is at least 1/sqrt(2)."""
     from .roots import compute_root
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Logarithm Solver", "Chebyshev"):
         imat = identity_like(mat)
         psub = params.copy()
@@ -184,7 +180,6 @@ def compute_logarithm_taylor(mat, params: SolverParameters | None = None):
     10-term Taylor series of log(1 + x) and rescaling."""
     from .squareroot import square_root
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Logarithm Solver", "Taylor"):
         imat = identity_like(mat)
         psub = params.copy()

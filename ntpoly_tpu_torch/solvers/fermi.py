@@ -22,8 +22,7 @@ from ..parallel import pmatrix as PM
 from ..utils.logging import logger
 from .common import (resolve, solver_log, iteration_log, identity_like,
                      orthogonalize, deorthogonalize, maybe_permute,
-                     maybe_unpermute, real_scalar, print_matrix_information,
-                     eager_only)
+                     maybe_unpermute, real_scalar, print_matrix_information)
 from .parameters import SolverParameters
 
 
@@ -101,7 +100,6 @@ def wom_gc(h, isq, chemical_potential, inv_temp,
     """Grand-canonical WOM at the given chemical potential ->
     (K, energy)."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Density Matrix Solver", "WOM_GC",
                     extra={"Inverse Temperature": inv_temp,
                            "Chemical Potential": chemical_potential}):
@@ -111,7 +109,6 @@ def wom_gc(h, isq, chemical_potential, inv_temp,
 def wom_c(h, isq, trace, inv_temp, params: SolverParameters | None = None):
     """Canonical WOM at the given trace -> (K, energy)."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Density Matrix Solver", "WOM_C",
                     extra={"Inverse Temperature": inv_temp,
                            "Target Trace": trace}):

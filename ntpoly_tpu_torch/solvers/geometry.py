@@ -1,7 +1,8 @@
 """Density-matrix extrapolation between geometry steps.
 
-Counterpart of ``ntpoly_tpu/solvers/geometry.py``, eager path (as
-every ported solver, ``iters_per_sync > 1`` raises):
+Counterpart of ``ntpoly_tpu/solvers/geometry.py``, run eagerly
+whatever ``iters_per_sync`` says, as in the reference (the square roots
+of ``lowdin_extrapolate`` run chunked with it):
 ``purification_extrapolate`` (niklasson2010trace) re-purifies the
 previous density against the new overlap, X <- 2X - XSX or XSX by
 the trace; ``lowdin_extrapolate`` (exner2002comparison) maps it
@@ -12,14 +13,13 @@ from __future__ import annotations
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
-                     maybe_permute, maybe_unpermute, real_scalar, eager_only)
+                     maybe_permute, maybe_unpermute, real_scalar)
 from .parameters import SolverParameters
 
 
 def purification_extrapolate(previous_density, overlap, trace,
                              params: SolverParameters | None = None):
     params, monitor = resolve(params)
-    eager_only(params)
     thr = params.threshold
     with solver_log(params, "Density Matrix Extrapolator", "Purification",
                     citations=("niklasson2010trace",)):
@@ -50,7 +50,6 @@ def lowdin_extrapolate(previous_density, old_overlap, new_overlap,
                        params: SolverParameters | None = None):
     from .squareroot import square_root, inverse_square_root
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Density Matrix Extrapolator", "Lowdin",
                     citations=("exner2002comparison",)):
         sqr = square_root(old_overlap, params)

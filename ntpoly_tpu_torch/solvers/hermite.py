@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, maybe_permute, maybe_unpermute,
-                     identity_like, eager_only)
+                     identity_like)
 from .parameters import SolverParameters
 
 
@@ -23,7 +23,6 @@ def compute(mat, poly: HermitePolynomial,
             params: SolverParameters | None = None):
     """sum_k c_k H_k(A)."""
     params, _ = resolve(params)
-    eager_only(params)
     c = poly.coefficients
     degree = len(c)
     with solver_log(params, "Hermite Solver", "Standard",

@@ -1,25 +1,30 @@
 """Matrix inverse.
 
-Counterpart of ``ntpoly_tpu/solvers/inverse.py``, eager path: the
-Hotelling (Newton) iteration X <- 2X - X A X from Ozaki's start
-X = sigma A (ozaki2001efficient, ``alg.matrix_sigma``), converged on
-the norm of I - X A; and the inverse by eigendecomposition.
+Counterpart of ``ntpoly_tpu/solvers/inverse.py``: the Hotelling
+(Newton) iteration X <- 2X - X A X from Ozaki's start X = sigma A
+(ozaki2001efficient, ``alg.matrix_sigma``), converged on the norm of
+I - X A, chunked with ``iters_per_sync > 1`` (``common.run_chunked``);
+and the inverse by eigendecomposition.
 """
 from __future__ import annotations
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
                      maybe_permute, maybe_unpermute, identity_like,
-                     real_scalar, eager_only)
+                     real_scalar, pin_capacity, run_chunked)
 from .parameters import SolverParameters
 
 
 def _hotelling(mat, params, monitor):
-    eager_only(params)
     thr = params.threshold
     imat = identity_like(mat)
     balanced, imat = maybe_permute(params, mat, imat)
     x = alg.scale(balanced, real_scalar(alg.matrix_sigma(balanced)))
+    if params.iters_per_sync > 1:
+        x, total = _hotelling_chunked(x, balanced, imat, params, monitor)
+        finish_iterations(params, total, x, monitor=monitor,
+                          solver="Inverse Solver")
+        return maybe_unpermute(params, x)
     total = 0
     with iteration_log(params):
         for ii in range(params.max_iterations):
@@ -37,6 +42,27 @@ def _hotelling(mat, params, monitor):
     finish_iterations(params, total, x, monitor=monitor,
                       solver="Inverse Solver")
     return maybe_unpermute(params, x)
+
+
+def _hotelling_chunked(x, balanced, imat, params, monitor):
+    """The Hotelling step chunked (reference ``_hotelling_chunked``)."""
+    thr = params.threshold
+    k_pin, (x, balp, imatp) = pin_capacity(params, x, balanced, imat)
+
+    def step(xc, balc, imatc):
+        t1 = alg.matmul(xc, balc, threshold=thr)
+        norm_value = alg.norm(alg.increment(imatc, t1, 1.0, -1.0))
+        x_new = alg.increment(alg.scale(xc, 2.0),
+                              alg.matmul(t1, xc, threshold=thr),
+                              1.0, -1.0, threshold=thr)
+        return x_new, (norm_value,)
+
+    with iteration_log(params) as ilog:
+        x, _, total = run_chunked(
+            step, x, (balp, imatp), params, monitor, ilog, k_pin=k_pin,
+            aux_names=("Convergence",), conv_mode="value",
+            cache_key=("hotelling", thr))
+    return x, total
 
 
 def invert(mat, params: SolverParameters | None = None):

@@ -1,7 +1,8 @@
 """Linear solvers.
 
-Counterpart of ``ntpoly_tpu/solvers/linear.py``, eager path: the
-matrix conjugate gradient with trace-ratio step sizes, and the blocked
+Counterpart of ``ntpoly_tpu/solvers/linear.py``: the matrix conjugate
+gradient with trace-ratio step sizes (chunked with ``iters_per_sync >
+1``, ``common.run_chunked``), and the blocked
 right-looking Cholesky factorization.  Each panel of a few block
 columns is extracted with one tall ``alg.spmm``, its diagonal block
 factorized densely (``torch.linalg.cholesky_ex``), the rows below
@@ -17,7 +18,7 @@ from ..parallel import pmatrix as PM
 from ..utils.errors import NTPolyError
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
                      maybe_permute, maybe_unpermute, identity_like,
-                     real_scalar, eager_only)
+                     real_scalar, pin_capacity, run_chunked)
 from .parameters import SolverParameters
 
 
@@ -25,7 +26,6 @@ def cg_solver(amat, bmat, params: SolverParameters | None = None):
     """X with A X = B for a symmetric positive definite A, from X = I;
     converged on |step| ||P||."""
     params, monitor = resolve(params)
-    eager_only(params)
     thr = params.threshold
     with solver_log(params, "Linear Solver", "CG"):
         imat = identity_like(amat)
@@ -33,6 +33,11 @@ def cg_solver(amat, bmat, params: SolverParameters | None = None):
         x = imat
         r = alg.increment(bb, alg.matmul(ab, x, threshold=thr), 1.0, -1.0)
         p = r
+        if params.iters_per_sync > 1:
+            x, total = _cg_chunked(x, r, p, ab, params, monitor)
+            finish_iterations(params, total + 1, x, monitor=monitor,
+                              solver="Linear Solver")
+            return maybe_unpermute(params, x)
         total = 0
         with iteration_log(params):
             for ii in range(params.max_iterations):
@@ -53,6 +58,37 @@ def cg_solver(amat, bmat, params: SolverParameters | None = None):
         finish_iterations(params, total + 1, x, monitor=monitor,
                           solver="Linear Solver")
         return maybe_unpermute(params, x)
+
+
+def _cg_chunked(x, r, p, ab, params, monitor):
+    """The CG step chunked (reference ``_cg_chunked``): X, R and P ride
+    in the carry.  CG starts with P = R, one matrix twice; the chunk
+    is functional and a captured chunk copies each into its own
+    input."""
+    thr = params.threshold
+    k_pin, (x, r, p, abp) = pin_capacity(params, x, r, p, ab, n_carry=3)
+
+    def step(carry, abc):
+        xc, rc, pc = carry
+        # the scalars in float64 on the device, as the eager loop's on
+        # the host
+        q = alg.matmul(abc, pc, threshold=thr)
+        top = alg.dot(rc, rc).double()
+        step_sz = top / alg.dot(pc, q).double()
+        x_new = alg.increment(xc, pc, 1.0, step_sz)
+        norm_value = (step_sz * alg.norm(pc).double()).abs()
+        r_new = alg.increment(rc, q, 1.0, -step_sz)
+        del q
+        new_top = alg.dot(r_new, r_new).double()
+        p_new = alg.increment(r_new, pc, 1.0, new_top / top)
+        return (x_new, r_new, p_new), (norm_value,)
+
+    with iteration_log(params) as ilog:
+        (x, _, _), _, total = run_chunked(
+            step, (x, r, p), (abp,), params, monitor, ilog, k_pin=k_pin,
+            aux_names=("Convergence",), conv_mode="value",
+            cache_key=("cg", thr))
+    return x, total
 
 
 def _chol_panel(a_rem, j0: int, dim_limit: int):

@@ -10,7 +10,7 @@ import math
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, maybe_permute, maybe_unpermute,
-                     identity_like, eager_only)
+                     identity_like)
 from .parameters import SolverParameters
 
 
@@ -26,7 +26,6 @@ def horner_compute(mat, poly: Polynomial,
                    params: SolverParameters | None = None):
     """sum_k c_k A^k by Horner's rule."""
     params, _ = resolve(params)
-    eager_only(params)
     c = poly.coefficients
     degree = len(c)
     with solver_log(params, "Polynomial Solver", "Horner",
@@ -51,7 +50,6 @@ def paterson_stockmeyer_compute(mat, poly: Polynomial,
     s = isqrt(degree), then Horner in A^s over blocks of s
     coefficients.  As in the reference, no load-balance permutation."""
     params, _ = resolve(params)
-    eager_only(params)
     thr = params.threshold
     c = poly.coefficients
     degree = len(c)

@@ -15,7 +15,7 @@ import math
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
                      maybe_permute, maybe_unpermute, identity_like,
-                     real_scalar, eager_only)
+                     real_scalar)
 from .parameters import SolverParameters
 
 
@@ -23,7 +23,6 @@ def compute_root(mat, root: int, params: SolverParameters | None = None):
     """A^(1/root)."""
     from .squareroot import square_root
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Root Solver", extra={"Root": root}):
         if root == 1:
             return mat
@@ -59,7 +58,6 @@ def compute_inverse_root(mat, root: int,
     from .inverse import invert
     from .squareroot import square_root, inverse_square_root
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Inverse Root Solver", extra={"Root": root}):
         if root == 1:
             return invert(mat, params)

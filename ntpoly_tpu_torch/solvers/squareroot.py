@@ -1,11 +1,12 @@
 """Matrix square root and inverse square root.
 
-Counterpart of ``ntpoly_tpu/solvers/squareroot.py``, eager path only:
-the coupled Newton-Schulz iterations (jansik2007linear), order 2 with
-a Gershgorin rescale every iteration, and the Taylor variants of order
-3 and 5 (5 is the default), and the dense square roots by
-eigendecomposition (``eigen.dense_matrix_function``).
-``iters_per_sync > 1`` (the chunked driver) is ROADMAP Queue A item 7.
+Counterpart of ``ntpoly_tpu/solvers/squareroot.py``: the coupled
+Newton-Schulz iterations (jansik2007linear), order 2 with a Gershgorin
+rescale every iteration, and the Taylor variants of order 3 and 5 (5
+is the default), each chunked with ``iters_per_sync > 1``
+(``common.run_chunked``; the rescale stays on the device); and the
+dense square roots by eigendecomposition
+(``eigen.dense_matrix_function``).
 
 The inverse square root of the overlap S is what a purification solver
 takes to work in the orthogonal basis (``density.trs4(H, ISQ, nel)``).
@@ -19,7 +20,7 @@ import torch
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
                      maybe_permute, maybe_unpermute, identity_like,
-                     real_scalar, eager_only)
+                     real_scalar, pin_capacity, run_chunked)
 from .parameters import SolverParameters
 
 
@@ -51,7 +52,6 @@ def _ns_order2(mat, params, compute_inverse):
     """Order 2: X = lam Y Z, T = (3I - X) / 2, Z <- sqrt(lam) Z T,
     Y <- sqrt(lam) T Y."""
     params, monitor = resolve(params)
-    eager_only(params)
     thr = params.threshold
     with solver_log(params, "Newton Schultz Inverse Square Root",
                     citations=("jansik2007linear",)):
@@ -59,6 +59,12 @@ def _ns_order2(mat, params, compute_inverse):
         y = mat                                   # square root iterate
         z = identity_like(mat)                    # inverse square root
         y, imat, z = maybe_permute(params, y, imat, z)
+        if params.iters_per_sync > 1:
+            y, z, total = _ns_order2_chunked(y, z, imat, params, monitor)
+            out = z if compute_inverse else y
+            finish_iterations(params, total + 1, out, monitor=monitor,
+                              solver="Square Root Solver")
+            return maybe_unpermute(params, out)
         total = 0
         with iteration_log(params):
             for ii in range(params.max_iterations):
@@ -88,7 +94,6 @@ def _ns_taylor(mat, params, order, compute_inverse):
     T(X) of :func:`_taylor_update`, Z <- T Z, Y <- Y T; the result is
     scaled back by sqrt(lam)."""
     params, monitor = resolve(params)
-    eager_only(params)
     thr = params.threshold
     with solver_log(params, "Newton Schultz Inverse Square Root",
                     citations=("jansik2007linear",),
@@ -98,6 +103,16 @@ def _ns_taylor(mat, params, order, compute_inverse):
         y = alg.scale(mat, lam)
         z = identity_like(mat)
         y, imat, z = maybe_permute(params, y, imat, z)
+        sq = math.sqrt(lam)
+        if params.iters_per_sync > 1:
+            y, z, total = _ns_taylor_chunked(y, z, imat, order, params,
+                                             monitor)
+            # as the reference: the monitor is not passed here
+            finish_iterations(params, total + 1,
+                              z if compute_inverse else y)
+            out = alg.scale(z, sq) if compute_inverse \
+                else alg.scale(y, 1.0 / sq)
+            return maybe_unpermute(params, out)
         total = 0
         with iteration_log(params):
             for ii in range(params.max_iterations):
@@ -114,7 +129,6 @@ def _ns_taylor(mat, params, order, compute_inverse):
                     break
         finish_iterations(params, total + 1, z if compute_inverse else y,
                           monitor=monitor, solver="Square Root Solver")
-        sq = math.sqrt(lam)
         out = alg.scale(z, sq) if compute_inverse else alg.scale(y, 1.0 / sq)
         return maybe_unpermute(params, out)
 
@@ -139,6 +153,59 @@ def _taylor_update(x, imat, order, thr):
     t = alg.increment(t, imat, 1.0, c)
     x = alg.increment(alg.matmul(t2, t, threshold=thr), imat, 1.0, d)
     return alg.scale(x, 35.0 / 128.0)
+
+
+def _ns_order2_chunked(y, z, imat, params, monitor):
+    """Order 2 chunked (reference ``_ns_order2_chunked``): the Gershgorin
+    rescale as device scalars (float64, as the eager loop's on the
+    host) -> (Y, Z, iterations)."""
+    thr = params.threshold
+    k_pin, (y, z, imatp) = pin_capacity(params, y, z, imat, n_carry=2)
+
+    def step(carry, imatc):
+        yc, zc = carry
+        x = alg.matmul(yc, zc, threshold=thr)
+        lo, hi = alg.gershgorin_bounds(x)
+        lam = 1.0 / torch.maximum(lo.double().abs(), hi.double().abs())
+        x = alg.scale(x, lam)
+        norm_value = alg.norm(alg.increment(imatc, x, 1.0, -1.0))
+        tk = alg.scale(alg.increment(imatc, x, 3.0, -1.0), 0.5)
+        del x
+        sq = lam.sqrt()
+        z_new = alg.scale(alg.matmul(zc, tk, threshold=thr), sq)
+        y_new = alg.scale(alg.matmul(tk, yc, threshold=thr), sq)
+        return (y_new, z_new), (norm_value,)
+
+    with iteration_log(params) as ilog:
+        (y, z), _, total = run_chunked(
+            step, (y, z), (imatp,), params, monitor, ilog, k_pin=k_pin,
+            aux_names=("Convergence",), conv_mode="value",
+            cache_key=("ns_order2", thr))
+    return y, z, total
+
+
+def _ns_taylor_chunked(y, z, imat, order, params, monitor):
+    """Taylor orders 3 and 5 chunked (reference ``_ns_taylor_chunked``)
+    -> (Y, Z, iterations)."""
+    thr = params.threshold
+    k_pin, (y, z, imatp) = pin_capacity(params, y, z, imat, n_carry=2)
+
+    def step(carry, imatc):
+        yc, zc = carry
+        x = alg.increment(alg.matmul(zc, yc, threshold=thr), imatc,
+                          1.0, -1.0)
+        norm_value = alg.norm(x)
+        x = _taylor_update(x, imatc, order, thr)
+        z_new = alg.matmul(x, zc, threshold=thr)
+        y_new = alg.matmul(yc, x, threshold=thr)
+        return (y_new, z_new), (norm_value,)
+
+    with iteration_log(params) as ilog:
+        (y, z), _, total = run_chunked(
+            step, (y, z), (imatp,), params, monitor, ilog, k_pin=k_pin,
+            aux_names=("Convergence",), conv_mode="value",
+            cache_key=("ns_taylor", order, thr))
+    return y, z, total
 
 
 def dense_square_root(mat, params: SolverParameters | None = None):

@@ -15,7 +15,7 @@ import torch
 
 from ..parallel import algebra as alg
 from .common import (resolve, solver_log, maybe_permute, maybe_unpermute,
-                     identity_like, eager_only)
+                     identity_like)
 from .parameters import SolverParameters
 
 
@@ -32,7 +32,6 @@ def _cos_cheby_coefficients(n: int = 17) -> list[float]:
 def sine(mat, params: SolverParameters | None = None):
     """sin(A) = cos(A - pi/2 I)."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Trigonometry Solver", "Sine"):
         shifted = alg.increment(mat, identity_like(mat), 1.0,
                                 -0.5 * math.pi)
@@ -42,7 +41,6 @@ def sine(mat, params: SolverParameters | None = None):
 def cosine(mat, params: SolverParameters | None = None):
     """cos(A)."""
     params, _ = resolve(params)
-    eager_only(params)
     with solver_log(params, "Trigonometry Solver", "Cosine"):
         return _scale_square_trig(mat, params)
 
@@ -111,7 +109,6 @@ def scale_square_trigonometry_taylor(mat,
     sum_k (-1)^k (A / sigma)^2k / (2k)! to k = 20, and the double
     angle (higham2003computing)."""
     params, _ = resolve(params)
-    eager_only(params)
     thr = params.threshold
     with solver_log(params, "Trigonometry Solver", "Taylor"):
         sigma, counter = _scaling(mat, 3.0e-3)

@@ -42,7 +42,7 @@ CASES = [
     "diagonal_scale", "load_balanced_gemm", "thresholded_gemm",
     "capacity_growth", "methods", "grand_sum", "trs4", "trs2", "pm",
     "hpcp", "sign", "eigen_dense", "lobpcg", "cholesky",
-    "allgather_triplets",
+    "allgather_triplets", "trs4_chunked",
 ]
 
 
@@ -285,15 +285,19 @@ def run_case(name: str, pk: Pkg, logdir, rank: int = 0, size: int = 1):
         out["scalar_gs"] = float(alg.grand_sum(pk.fill(d["a"])))
         z = complex(alg.grand_sum(pk.fill(d["z"], dtype=pk.c128)))
         out["scalar_gs_re"], out["scalar_gs_im"] = z.real, z.imag
-    elif name in ("trs4", "trs2", "pm", "hpcp"):
+    elif name in ("trs4", "trs2", "pm", "hpcp", "trs4_chunked"):
+        # trs4_chunked: four iterations per host read (the chunked
+        # driver, uncaptured on a grid)
         h = pk.fill(d["h"])
         s = pk.fill(d["s"])
         par = pk.Params(threshold=1e-12, converge_diff=1e-12)
         isq = pk.sqrt.inverse_square_root(s, par)
         params = pk.Params(threshold=1e-12, converge_diff=1e-10,
-                           be_verbose=True)
-        (k, e, mu), it = _solve(pk, getattr(pk.density, name), h, isq, HALF,
-                                params, logdir=logdir, tag=f"{name}{rank}")
+                           be_verbose=True,
+                           iters_per_sync=4 if "chunked" in name else 1)
+        solver = getattr(pk.density, name.split("_")[0])
+        (k, e, mu), it = _solve(pk, solver, h, isq, HALF, params,
+                                logdir=logdir, tag=f"{name}{rank}")
         out["energy"] = float(e)
         out["iters_solve"] = it
         out["dense_k"] = pk.dense(k)
@@ -417,8 +421,9 @@ def compare(name: str, workdir: Path, shape, logdir) -> None:
 def multihost(workdir: str, shape, mode: str) -> None:
     """Byte-range read ('distributed') or the own-tile fill
     ('prepartitioned'), TRS4 to convergence, and the collective Matrix
-    Market and binary writes; 'stress' is the dim-1024 chain with the
-    capacity pinned at 2 (rank 0 logs).  Prints the energy."""
+    Market and binary writes; 'stress' is the dim-1024 chain, chunked
+    four iterations a host read with the capacity pinned at 2, as the
+    reference's stress (rank 0 logs).  Prints the energy."""
     import torch
     from ntpoly_tpu_torch.io import binary
     from ntpoly_tpu_torch.io import matrix_market as mm
@@ -438,7 +443,8 @@ def multihost(workdir: str, shape, mode: str) -> None:
         h = mm.read(str(work / "h.mtx"), bs=32, grid=grid)
         isq = PM.identity(h.dim, bs=32, dtype=h.dtype, grid=grid)
         params = SolverParameters(converge_diff=1e-8, threshold=1e-9,
-                                  k_out=2, be_verbose=True)
+                                  iters_per_sync=4, k_out=2,
+                                  be_verbose=True)
         rho, energy, mu = density.trs4(h, isq, float(h.dim // 2), params)
         if me == 0:
             log.deactivate_logger()

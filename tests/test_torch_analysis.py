@@ -429,13 +429,20 @@ def test_purification_extrapolate(tmp_path):
 
 
 def test_extrapolations_refuse_the_chunked_driver():
+    """With iters_per_sync 4 the purification extrapolation runs eagerly
+    and the Lowdin one takes its square roots chunked, as in the
+    reference: both equal the reference's at the same setting."""
     d, s, s2 = molecule(seed=9)
-    (_, pd), (_, ps), (_, ps2) = both(d, 8), both(s, 8), both(s2, 8)
-    par = PP.SolverParameters(iters_per_sync=4)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PGe.purification_extrapolate(pd, ps2, 24, par)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PGe.lowdin_extrapolate(pd, ps, ps2, par)
+    (rd, pd), (rs, ps), (rs2, ps2) = both(d, 8), both(s, 8), both(s2, 8)
+    kw = dict(threshold=1e-12, converge_diff=1e-10, iters_per_sync=4)
+    rp, pp = RP.SolverParameters(**kw), PP.SolverParameters(**kw)
+    for ref, got in ((RGe.purification_extrapolate(rd, rs2, 24, rp),
+                      PGe.purification_extrapolate(pd, ps2, 24, pp)),
+                     (RGe.lowdin_extrapolate(rd, rs, rs2, rp),
+                      PGe.lowdin_extrapolate(pd, ps, ps2, pp))):
+        ref = np.asarray(RPM.to_dense(ref))
+        got = n(PPM.to_dense(got))
+        assert np.linalg.norm(got - ref) <= 1e-10 * np.linalg.norm(ref)
 
 
 def test_lowdin_extrapolate():

@@ -166,11 +166,18 @@ def test_grid_shapes_and_getters(tmp_path):
 
 
 def test_iters_per_sync_refused(tmp_path, rng):
-    _, p = read(tmp_path, np.eye(DIM) * 2.0)
-    sp = pnt.SolverParameters()
-    sp.SetItersPerSync(2)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        pnt.InverseSolvers.Invert(p, pnt.Matrix_ps(DIM), sp)
+    """SetItersPerSync(2) runs the Hotelling loop chunked through the
+    API, as the reference's does: its inverse, and the oracle's."""
+    a = np.eye(DIM) * 2.0 + 0.1 * np.diag(np.ones(DIM - 1), 1) \
+        + 0.1 * np.diag(np.ones(DIM - 1), -1)
+    r, p = read(tmp_path, a)
+    rs, ps = rnt.SolverParameters(), pnt.SolverParameters()
+    rs.SetItersPerSync(2)
+    ps.SetItersPerSync(2)
+    ro, po = rnt.Matrix_ps(DIM), pnt.Matrix_ps(DIM)
+    rnt.InverseSolvers.Invert(r, ro, rs)
+    pnt.InverseSolvers.Invert(p, po, ps)
+    agree(ro, po, np.linalg.inv(a))
 
 
 def test_logger_and_timers(tmp_path):

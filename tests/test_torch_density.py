@@ -141,16 +141,25 @@ def test_scale_and_fold(tmp_path, system):
     assert abs(pres[1] - w[:int(NEL)].sum()) <= 1e-6 * abs(pres[1])
 
 
-def test_unported_paths_refuse(system):
-    _, (ph, pisq), _, _ = system
-    chunked = PP.SolverParameters(iters_per_sync=3)
+def test_unported_paths_refuse(tmp_path, system):
+    """With iters_per_sync 3 (the chunked driver, ported): PM, TRS2, TRS4
+    and HPCP run chunked, and scale-and-fold and the dense solver
+    eagerly, as in the reference; each matches the reference's solve
+    at the same setting."""
     for name in ("pm", "trs2", "trs4", "hpcp"):
-        with pytest.raises(ValueError, match="Queue A item 7"):
-            getattr(PD, name)(ph, pisq, NEL, chunked)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PD.scale_and_fold(ph, pisq, NEL, -0.1, 0.1, chunked)
-    # the dense solver is ported: it ignores iters_per_sync, as in the
-    # reference, and matches the reference's dense solve
+        ref, got = solve_both(tmp_path, system, name, precision="highest",
+                              convergence_metric="energy",
+                              converge_diff=STOP[name], threshold=1e-7,
+                              iters_per_sync=3)
+        assert_parity(ref, got)
+    h, s = system[2], system[3]
+    w = sla.eigh(h, s, eigvals_only=True)
+    ref, got = solve_both(tmp_path, system, "scale_and_fold",
+                          w[int(NEL) - 1], w[int(NEL)], converge_diff=1e-8,
+                          threshold=1e-9, iters_per_sync=3)
+    assert_parity(ref, got, mu=False)
+    chunked = PP.SolverParameters(iters_per_sync=3)
+    _, (ph, pisq), _, _ = system
     (rh, risq), _, _, _ = system
     rk, re_, rmu = RD.dense_density(rh, risq, NEL)
     pk, pe, pmu = PD.dense_density(ph, pisq, NEL, chunked)

@@ -384,6 +384,13 @@ def test_wom(molecule, mode):
 
 
 def test_wom_refuses_the_chunked_driver(molecule):
-    (_, ph), (_, pisq), _, _, _ = molecule
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PF.wom_c(ph, pisq, NEL, 50.0, PP.SolverParameters(iters_per_sync=2))
+    """wom_c runs eagerly whatever iters_per_sync says, as in the
+    reference: with 2, the reference's K and energy at the same
+    setting."""
+    (rh, ph), (risq, pisq), _, _, _ = molecule
+    rp, pp = params(threshold=1e-12, iters_per_sync=2)
+    ref = RF.wom_c(rh, risq, NEL, 50.0, rp)
+    got = PF.wom_c(ph, pisq, NEL, 50.0, pp)
+    rd, pd = dense(ref[0], got[0])
+    assert rel(pd, rd) <= TOL[np.float64]
+    assert abs(got[1] - ref[1]) <= 1e-10 * abs(ref[1])

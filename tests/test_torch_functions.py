@@ -350,22 +350,61 @@ def test_trigonometry(rng, name, oracle):
 
 
 # ----------------------------------------------------------------------------
-# what is not ported
+# iters_per_sync > 1: the chunked driver
 # ----------------------------------------------------------------------------
 
+def _spd(rng):
+    return create_matrix(rng, spd=True, diag_dom=True)
+
+
+def _log_input(rng):
+    return create_matrix(rng, spd=True, diag_dom=True, scaled=True) \
+        + np.eye(DIM)
+
+
+# CG's right-hand side ("b"), and (port solver, reference solver, its
+# matrix, the extra arguments, oracle)
+B_CG = create_matrix(np.random.default_rng(3))
 CHUNKED = [
-    (PI.invert, ()), (PI.pseudo_inverse, ()), (PS.sign_function, ()),
-    (PS.polar_decomposition, ()), (PR.compute_root, (3,)),
-    (PR.compute_inverse_root, (3,)), (PL.cg_solver, ("b",)),
-    (PX.compute_exponential, ()), (PX.compute_logarithm, ()),
-    (PT.sine, ()), (PT.cosine, ()),
+    (PI.invert, RI.invert, _spd, (), np.linalg.inv),
+    (PI.pseudo_inverse, RI.pseudo_inverse, _spd, (), np.linalg.pinv),
+    (PS.sign_function, RS.sign_function, create_matrix, (),
+     lambda m: np.real(sla.signm(m))),
+    (PS.polar_decomposition, RS.polar_decomposition,
+     lambda rng: rng.random((DIM, DIM)) + DIM * np.eye(DIM) / 4, (),
+     lambda m: sla.polar(m)[0]),
+    (PR.compute_root, RR.compute_root,
+     lambda rng: create_matrix(rng, diag_dom=True), (3,),
+     lambda m: sla.fractional_matrix_power(m, 1.0 / 3).real),
+    (PR.compute_inverse_root, RR.compute_inverse_root,
+     lambda rng: create_matrix(rng, diag_dom=True), (3,),
+     lambda m: sla.fractional_matrix_power(m, -1.0 / 3).real),
+    (PL.cg_solver, RL.cg_solver, _spd, ("b",),
+     lambda m: np.linalg.solve(m, B_CG)),
+    (PX.compute_exponential, RX.compute_exponential,
+     lambda rng: create_matrix(rng, scaled=True), (), sla.expm),
+    (PX.compute_logarithm, RX.compute_logarithm, _log_input, (),
+     lambda m: np.real(sla.logm(m))),
+    (PT.sine, RT.sine, create_matrix, (), sla.sinm),
+    (PT.cosine, RT.cosine, create_matrix, (), sla.cosm),
 ]
 
 
-@pytest.mark.parametrize("fn,args", CHUNKED,
-                         ids=[f.__name__ for f, _ in CHUNKED])
-def test_chunked_driver_refused(rng, fn, args):
-    _, pm = pair(create_matrix(rng, spd=True, diag_dom=True))
-    args = tuple(pm if a == "b" else a for a in args)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        fn(pm, *args, PP.SolverParameters(iters_per_sync=4))
+@pytest.mark.parametrize("fn,fn_ref,make,args,oracle", CHUNKED,
+                         ids=[c[0].__name__ for c in CHUNKED])
+def test_chunked_driver_refused(rng, fn, fn_ref, make, args, oracle):
+    """With iters_per_sync 4 the loops that the reference chunks run
+    chunked (Hotelling, sign, CG, and the square roots under the roots
+    and the logarithm) and the others eagerly (the polar factor, the
+    exponential, sine and cosine), each as the reference's solve at the
+    same setting, to 1e-10, and within the oracle bar (the polar
+    factor's U)."""
+    m = make(rng)
+    (rm, pm), (rb, pb) = pair(m), pair(B_CG)
+    rp, pp = params(iters_per_sync=4)
+    ref = fn_ref(rm, *(rb if a == "b" else a for a in args), rp)
+    got = fn(pm, *(pb if a == "b" else a for a in args), pp)
+    if isinstance(ref, tuple):
+        ref, got = ref[0], got[0]
+    assert_both(np.asarray(RPM.to_dense(ref)), n(PPM.to_dense(got)),
+                oracle(m))

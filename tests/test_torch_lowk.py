@@ -257,7 +257,8 @@ def test_wrappers_raise_off_the_cpu_and_cuda():
     ref, got = stream_case((8, 3, 6), np.float64, 1.0, 0.0)
     assert set(P.launches) == {"spgemm_general", "spgemm_band",
                                "spgemm_stream", "spgemm_window",
-                               "spgemm_uniform", "split_bf16"}
+                               "spgemm_uniform", "split_bf16",
+                               "spgemm_band_pred", "spgemm_general_pred"}
     assert not any(P.launches.values())
     ac = torch.zeros((8, 1), dtype=torch.int32, device="meta")
     ab = torch.zeros((8, 1, 8, 8), device="meta")

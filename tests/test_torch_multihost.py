@@ -5,9 +5,11 @@ fills each rank's own tile ('prepartitioned'), runs TRS4 to the oracle
 energy, and writes the density collectively as Matrix Market and as
 binary, both read back here (the binary by the reference's reader).
 Then the byte-range partitions, the structural ops on a 2 x 2 x 1 world
-with no host triplets, and the regrow stress at dim 1024 on 2 x 2 x 2:
-the eager solve with its capacity pinned at 2 must regrow and log it
-(the chunked solves, ``run_chunked``, are not ported)."""
+with no host triplets, and the reference's regrow stress at dim 1024 on
+2 x 2 x 2: TRS4 chunked four iterations a host read
+(``common.run_chunked``, uncaptured on a grid) with its capacity pinned
+at 2 must regrow across a chunk and log it, and land on the oracle
+energy."""
 from pathlib import Path
 
 import numpy as np

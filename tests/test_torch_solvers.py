@@ -162,14 +162,19 @@ def test_trs4_compensated_pinned_band_interpret(tmp_path):
                           got[0].col_ids.numpy())
 
 
-def test_trs4_refuses_unported_paths():
-    """The chunked driver still raises; a non-identity ISQ, which raised
-    until the similarity transform was ported, now solves: ISQ = 2I
-    scales H by 4, which leaves TRS4's iterates as they are, so K and
-    the energy come out 4 times the orthogonal solve's."""
+def test_trs4_refuses_unported_paths(tmp_path):
+    """The chunked driver (iters_per_sync 4) solves as the reference's
+    chunked solve does: iterations, energy, mu and K; a non-identity
+    ISQ, which raised until the similarity transform was ported, now
+    solves: ISQ = 2I scales H by 4, which leaves TRS4's iterates as they
+    are, so K and the energy come out 4 times the orthogonal solve's."""
+    ref, got = solve_both(tmp_path, precision="highest",
+                          convergence_metric="energy", converge_diff=1e-4,
+                          threshold=1e-7, iters_per_sync=4)
+    assert_trs4_parity(ref, got)
+    assert np.abs(np.asarray(PPM.to_dense(got[0]))
+                  - np.asarray(RPM.to_dense(ref[0]))).max() <= 1e-10
     _, (ph, pi) = systems()
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PD.trs4(ph, pi, DIM / 2, PP.SolverParameters(iters_per_sync=4))
     not_identity = PA.scale(pi, 2.0)
     params = PP.SolverParameters(precision="highest", threshold=1e-7,
                                  convergence_metric="energy",

@@ -247,7 +247,8 @@ def test_cpu_tensors_take_plain_versions():
     both(a, a, 6)
     assert set(P.launches) == {"spgemm_general", "spgemm_band",
                                "spgemm_stream", "spgemm_window",
-                               "spgemm_uniform", "split_bf16"}
+                               "spgemm_uniform", "split_bf16",
+                               "spgemm_band_pred", "spgemm_general_pred"}
     assert not any(P.launches.values())
     ac = torch.zeros((2, 1), dtype=torch.int32, device="meta")
     ab = torch.zeros((2, 1, 8, 8), device="meta")

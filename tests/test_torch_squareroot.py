@@ -114,9 +114,16 @@ def test_inverse_square_root_load_balanced(tmp_path):
 
 
 def test_refusals():
-    _, ps = overlaps(64)
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        PSQ.inverse_square_root(ps, PP.SolverParameters(iters_per_sync=4))
+    """The chunked driver (iters_per_sync 4) is ported: the reference's
+    chunked inverse square root, to 1e-10.  An unsupported order still
+    raises."""
+    rs, ps = overlaps(64)
+    kw = dict(threshold=1e-10, converge_diff=1e-10, iters_per_sync=4)
+    ref = np.asarray(RPM.to_dense(RSQ.inverse_square_root(
+        rs, RP.SolverParameters(**kw))))
+    got = n(PPM.to_dense(PSQ.inverse_square_root(
+        ps, PP.SolverParameters(**kw))))
+    assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
     with pytest.raises(ValueError, match="Taylor order 4"):
         PSQ.square_root(ps, order=4)
     # the dense square roots are ported: the reference's to 1e-10
