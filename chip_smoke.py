@@ -153,7 +153,7 @@ Phases, one line each with its seconds:
    extrapolations and LOBPCG, real and complex, at 2048 rows, bs 32,
    f64 on the card against the CPU (1e-9 relative; eigenvectors through
    V V^H).
-12. api: the NTPoly-compatible surface (profiling/api.py) through
+13. api: the NTPoly-compatible surface (profiling/api.py) through
    ``import ntpoly_tpu_torch as nt`` at the flagship's width, 2^20 rows,
    bs 128, f32: H and S written with WriteToBinary (and H with
    WriteToMatrixMarket) and read back through nt.Matrix_ps, slot for
@@ -174,7 +174,26 @@ Phases, one line each with its seconds:
    on the card (`api.EXAMPLE_BARS`); and the PremadeMatrix workflow at
    2048 rows, f64, on the card against the CPU (densities within 1e-12
    relative).
-14. mesh: the multi-device layer (parallel/dist.py, the sharded
+14. guide: the user guide (ntpoly_tpu_torch/docs/guide.md) run as
+   written on the card: its python blocks in order in one namespace
+   (``docs.run_guide``), DEVICE "cuda", at its own sizes (the flagship's
+   band shape at 2^18 rows, bs 128, f32): H and S written as Matrix
+   Market and read back through ``nt``, S -> ISQ -> TRS4 through the
+   API, X @ X at each tier against the float64 product, TRS4 at 'high'
+   and 'highest', the exponential of a complex band against its dense
+   oracle, TRS4 at the flagship's settings and chunked (iters_per_sync
+   4, captured bit for bit its uncaptured twin), the logger, timers and
+   counters; every band and general product and split pass held against
+   its plain version as in phase 9 (a chunk's products while it is
+   being captured recorded and held on the uncaptured steps of the same
+   keys); the tiers' errors ordered (bf16x3 'high' nearer the float64
+   product than 'bf16', 'default' equal to 'bf16', 'highest' within
+   float32 rounding), the complex exponential within 1e-4, the quick
+   start's density at 'high' within the PremadeMatrix example's bars
+   (its generalized certificates computed at 'highest') and phase api's
+   commutator bar, and the 'highest' TRS4's density within phase 8's
+   bars.
+15. mesh: the multi-device layer (parallel/dist.py, the sharded
    PSMatrix, the 3D SUMMA). (a) the flagship at 'high' on a 1 x 1 x 1
    grid inside a one-rank world (cpu:gloo,cuda:nccl): iterations,
    energy, mu and D slot for slot equal to the same solve on the default
@@ -193,7 +212,7 @@ Phases, one line each with its seconds:
    same with eight ranks on 2 x 2 x 2 at 2^16 rows (the slices' split-k
    and merge). A rank that fails fails the phase.
 
-``python3 chip_smoke.py --cards`` runs only phases 1, 2 and phase 14's
+``python3 chip_smoke.py --cards`` runs only phases 1, 2 and phase 15's
 world (d), on a host with four cards: one rank on each card over the
 cpu:gloo,cuda:nccl pair, 2 x 2 x 1, the flagship's H at 2^20 rows,
 held as (b) and (c) are.
@@ -205,7 +224,8 @@ flagship's 'high', in phase 9's ISQ and timed solves, in the timed
 solves of phase 10, in phase 11's captured solves (band and general
 launches under the device predicate counted apart, as the `kernels`
 line's `launches_predicated`), in the timed solves of phase 12, in
-phase 13's calls through the API and in phase 14's timed solves
+phase 13's calls through the API, in phase 14's run of the guide
+and in phase 15's timed solves
 (every rank's; the `kernels` line reports
 their sum), the split pass in those
 solves, the stream and window kernels in the low-K profile of phase 5,
@@ -1357,6 +1377,12 @@ def _hold_split(x, lo, out) -> str:
     return f"{what}: bit for bit"
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 @contextlib.contextmanager
 def _held_on_path(errs, held: dict, hold: bool = True):
     """While open, each product of the band and general kernels that
@@ -1368,33 +1394,45 @@ def _held_on_path(errs, held: dict, hold: bool = True):
     skipped where its blocks all returned.  With ``hold`` off the keys
     are only recorded (to None; a predicated launch's key with "pred"
     appended), the launches untouched and nothing read from the card:
-    this records the keys of a solve being captured."""
+    this records the keys of a solve being captured.  With ``hold`` on,
+    a launch made while the current stream is being captured into a
+    CUDA graph is recorded the same way, its key with "captured"
+    appended (nothing can be read from the card there): its plain key
+    is held on an uncaptured launch of the same shapes
+    (``_missing_keys``)."""
     wrappers = {name: getattr(sp, name) for name in (*PLAINS, "split_bf16")}
 
     def product(name):
         def call(*args, **kw):
             out = wrappers[name](*args, **kw)
             run = kw.get("run")
-            if hold and run is not None and not bool(run):
+            capturing = hold and _capturing()
+            holding = hold and not capturing
+            if holding and run is not None and not bool(run):
                 return out
             key = (name, sp.kernel_tier(args[1].dtype, kw["precision"]),
                    args[0].shape[1], args[2].shape[1], kw["k_out"],
                    args[1].dtype)
-            if not hold and run is not None:
+            if not holding and run is not None:
                 key = key + ("pred",)
+            if capturing:
+                key = key + ("captured",)
             if key not in held:
                 plain_kw = {k: v for k, v in kw.items()
                             if k not in ("run", "out", "planes")}
                 held[key] = (_hold_product(name, args, plain_kw, out, errs)
-                             if hold else None)
+                             if holding else None)
             return out
         return call
 
     def split(x, *, lo=True):
         out = wrappers["split_bf16"](x, lo=lo)
         key = ("split_bf16", lo, tuple(x.shape))
+        holding = hold and not _capturing()
+        if hold and not holding:
+            key = key + ("captured",)
         if key not in held:
-            held[key] = _hold_split(x, lo, out) if hold else None
+            held[key] = _hold_split(x, lo, out) if holding else None
         return out
 
     for name in PLAINS:
@@ -1644,22 +1682,29 @@ def _chunked_counts(*readings) -> dict:
             for k in CHUNKED_KERNELS}
 
 
-def _chunked_held(held: dict, recorded: dict) -> None:
-    """Every key that the captured solves launched was held on the
-    uncaptured ones: a plain launch's key itself, a predicated launch's
-    (tier, KA, KB, k_out, dtype) by the band or the general kernel,
-    whichever the device's choice ran; and the band and general
-    kernels and the split pass each held at least once."""
+def _missing_keys(held: dict, recorded) -> None:
+    """Every key that captured solves launched (``recorded``) was held
+    on uncaptured launches (``held``, a line for each key held): a plain
+    launch's key itself, a predicated launch's (tier, KA, KB, k_out,
+    dtype) by the band or the general kernel, whichever the device's
+    choice ran."""
     missing = []
     for key in recorded:
         if key[-1] != "pred":
-            ok = key in held
+            ok = held.get(key) is not None
         else:
-            ok = any((name,) + key[1:-1] in held for name in PLAINS)
+            ok = any(held.get((name,) + key[1:-1]) is not None
+                     for name in PLAINS)
         if not ok:
             missing.append(key)
     if missing:
         raise AssertionError(f"captured keys never held: {missing}")
+
+
+def _chunked_held(held: dict, recorded: dict) -> None:
+    """``_missing_keys``, and the band and general kernels and the split
+    pass each held at least once."""
+    _missing_keys(held, recorded)
     kinds = {key[0] for key in held}
     if not {"spgemm_band", "spgemm_general", "split_bf16"} <= kinds:
         raise AssertionError("the chunked path's products held did not "
@@ -1966,6 +2011,106 @@ def phase_api(errs):
     if not all(counts.values()):
         raise AssertionError("the api path did not launch the band and "
                              "general kernels and the split pass")
+    return counts
+
+
+# the guide phase's bars: each tier's largest error of X @ X relative to
+# max |C| against the float64 product ('high' at most this; 'highest'
+# within float32 rounding), and the complex exponential's relative
+# Frobenius error against its dense oracle (the reference's 1e-4)
+GUIDE_BARS = {"high": 2e-5, "highest": 1e-6, "complex": 1e-4}
+
+
+def _guide_checks(ns: dict) -> list[str]:
+    """The guide's readings against ``GUIDE_BARS``; the quick start's
+    density (its last TRS4 through the API, at 'high') within the
+    PremadeMatrix example's bars (``api.EXAMPLE_BARS``: idempotency
+    1e-3, the electron count 1e-4 an electron) and phase api's
+    commutator bar; the density of its TRS4 at 'highest' within the
+    flagship's (phase flagship)."""
+    bad = []
+    te = ns["tier_error"]
+    if not te["high"] <= GUIDE_BARS["high"] < te["bf16"]:
+        bad.append(f"tier 'high' {te['high']!r} not within "
+                   f"{GUIDE_BARS['high']} below 'bf16' {te['bf16']!r}")
+    if te["default"] != te["bf16"]:
+        bad.append("'default' is not 'bf16'")
+    if not te["highest"] <= GUIDE_BARS["highest"]:
+        bad.append(f"tier 'highest' {te['highest']!r}")
+    if not ns["complex_error"] <= GUIDE_BARS["complex"]:
+        bad.append(f"complex exponential {ns['complex_error']!r}")
+    values = [ns["energy"], ns["mu"], ns["e_flag"], ns["e4"],
+              *(v for out in ns["solved"].values() for v in out[1:])]
+    if not all(math.isfinite(v) for v in values):
+        bad.append(f"a reading is not finite: {values}")
+    nel = ns["NEL"]
+    quick = purity_invariants(ns["kmat"]._m, ns["hamiltonian"]._m, nel,
+                              api_path.THRESHOLD, s=ns["overlap"]._m)
+    exact = purity_invariants(ns["solved"]["highest"][0], ns["x"], nel,
+                              api_path.THRESHOLD)
+    for what, inv in (("quick start ('high')", quick),
+                      ("TRS4 'highest'", exact)):
+        print(f"  {what} density, certificates (at 'highest'): "
+              + json.dumps(inv))
+    premade = {k: api_path.EXAMPLE_BARS[f"premade_matrix.{k}"]
+               for k in ("idempotency_rel", "trace_err")}
+    # the example's trace bar holds its ten electrons
+    if not (quick["idempotency_rel"] <= premade["idempotency_rel"]
+            and quick["trace_abs_err"] / nel <= premade["trace_err"] / 10
+            and quick["commutator_rel"]
+            <= api_path.BARS["trs4.commutator_rel"]):
+        bad.append("the quick start's density out of bounds")
+    if not (exact["idempotency_rel"] <= 1e-5
+            and exact["commutator_rel"] <= 5e-5
+            and exact["trace_abs_err"] / nel <= 1e-6):
+        bad.append("the 'highest' TRS4 density out of bounds")
+    return bad
+
+
+def phase_guide(errs):
+    """The user guide run as written on the card (``docs.run_guide``:
+    its python blocks in order, DEVICE "cuda", at its own sizes) inside
+    ``_held_on_path``; the keys of the chunk captured in it held on its
+    uncaptured steps; its readings checked (``_guide_checks``).  -> the
+    launch counts of the guide's run."""
+    from ntpoly_tpu_torch import docs
+    held = {}
+    # the guide resets the counts itself (its observability block): keep
+    # what each reset drops
+    dropped = dict.fromkeys(sp.launches, 0)
+    reset = sp.reset_launches
+
+    def keep_and_reset():
+        for k, v in sp.launches.items():
+            dropped[k] += v
+        reset()
+
+    reset()
+    t0 = time.perf_counter()
+    sp.reset_launches = keep_and_reset
+    try:
+        with _held_on_path(errs, held):
+            ns = docs.run_guide()
+    finally:
+        sp.reset_launches = reset
+    torch.cuda.synchronize()
+    counts = {k: sp.launches[k] + dropped[k] for k in PATH_KERNELS}
+    print(f"  the guide's blocks: {time.perf_counter() - t0:.2f} s, "
+          f"launches {counts}")
+    for line in held.values():
+        if line is not None:
+            print(f"  held on the path: {line}")
+    captured = [key[:-1] for key in held if key[-1] == "captured"]
+    print(f"  keys launched while capturing: {captured}")
+    _missing_keys(held, captured)
+    print(f"  tiers: {ns['tier_error']}, complex exponential "
+          f"{ns['complex_error']!r}")
+    bad = _guide_checks(ns)
+    if bad:
+        raise AssertionError("phase guide: " + "; ".join(bad))
+    if not (counts["spgemm_band"] or counts["spgemm_general"]):
+        raise AssertionError("the guide launched neither the band nor "
+                             "the general kernel")
     return counts
 
 
@@ -2282,9 +2427,10 @@ def main() -> int:
     chunk = run("chunked", phase_chunked, errs)
     anal = run("analysis", phase_analysis, errs)
     surface = run("api", phase_api, errs)
+    guide = run("guide", phase_guide, errs)
     mesh = run("mesh", phase_mesh, errs)
     counts = {k: parity[k] + flagship[k] + non_orth[k] + funcs[k]
-              + chunk[k] + anal[k] + surface[k] + mesh[k]
+              + chunk[k] + anal[k] + surface[k] + guide[k] + mesh[k]
               for k in PATH_KERNELS}
     counts.update({k: low[k] for k in ("spgemm_stream", "spgemm_window")})
     counts["spgemm_uniform"] = low_r5["spgemm_uniform"]
@@ -2293,7 +2439,8 @@ def main() -> int:
     print(f"launches on each kernel's path: {counts} (parity solve "
           f"{parity}, flagship solve {flagship}, overlap path {non_orth}, "
           f"functions path {funcs}, chunked path {chunk}, analysis path "
-          f"{anal}, api path {surface}, mesh path {mesh}, low-K profile "
+          f"{anal}, api path {surface}, guide {guide}, mesh path {mesh}, "
+          f"low-K profile "
           f"{low}, round-5 low-K profile {low_r5}); under the device "
           f"predicate (chunked 'auto', band and general each launched, "
           f"one computing): {pred}")

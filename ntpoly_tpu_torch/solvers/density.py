@@ -1,6 +1,7 @@
 """Density matrix solvers: purification.
 
-Counterpart of ``ntpoly_tpu/solvers/density.py``: PM
+Counterpart of ``ntpoly_tpu/solvers/density.py``, after reference
+Source/Fortran/DensityMatrixSolversModule.F90: PM
 (palser1998canonical), TRS2 and TRS4 (niklasson2002expansion), HPCP
 (truflandier2016communication) and scale-and-fold
 (rubensson2011nonmonotonic), each in the orthogonal basis of the given

@@ -2,9 +2,21 @@
 
 Copied from ``ntpoly_tpu/solvers/parameters.py``: the fields, their
 defaults and the monitor's rules are the reference's exactly, so a
-solve makes the same decisions in both packages.  Fields that name TPU
-behaviour keep their names; ``precision`` and ``matmul_method`` mean
-here what ``ops/spgemm.py`` and ``parallel/algebra.py`` say.
+solve makes the same decisions in both packages.  The fields beyond
+the reference's keep the JAX package's names; what each does in this
+package is said beside it:
+
+  * ``precision`` picks the SpGEMM tier (``ops/spgemm.kernel_tier``);
+  * ``matmul_method`` picks the kernel (``parallel/algebra.matmul``);
+  * ``k_out`` and ``on_overflow`` the capacity policy
+    (``parallel/algebra.capacity_policy``);
+  * ``iters_per_sync`` the chunked driver
+    (``solvers/common.run_chunked``);
+  * ``compensated_scalars`` the two-float reductions
+    (``core/bell.comp_sum``, ``solvers/density``);
+  * ``row_chunk`` is accepted for parity with the reference and
+    ignored: the reference chunks the rows of its TPU kernels to fit
+    their scalar memory, and the CUDA kernels have no such limit.
 
 Faithful ports of the control logic that gates every iterative solver:
 reference Source/Fortran/SolverParametersModule.F90:14-113 and
@@ -45,10 +57,9 @@ class Monitor:
         # idempotency functional): converged at the FIRST non-decrease
         # once the previous value sat below loose_cutoff — a
         # quadratically-decaying residual hits its arithmetic floor and
-        # upticks immediately, while the windowed rules wait ~5 more
-        # iterations for the long average to wash out the decay tail
-        # (measured: trs4_10k at precision='high' took 14 iterations
-        # windowed vs 9 for the energy monitor at 'highest').
+        # upticks immediately, while the windowed rules wait for the
+        # long average to wash out the decay tail, several iterations
+        # more.
         self.plateau = plateau
         self.converged = False          # set once check_converged fires
 
@@ -108,7 +119,9 @@ class Monitor:
 
 @dataclass
 class SolverParameters:
-    """reference SolverParametersModule.F90:14-113 plus TPU-specific knobs."""
+    """reference SolverParametersModule.F90:14-113 plus the capacity,
+    chunking, tier and kernel knobs of the JAX package, each with what
+    it does here."""
     converge_diff: float = CONVERGENCE_DIFF_CONST
     max_iterations: int = MAX_ITERATIONS_CONST
     threshold: float = 0.0
@@ -121,32 +134,42 @@ class SolverParameters:
     # exhausts max_iterations without its monitor firing (the reference
     # logs totals and returns silently; strict callers want the raise).
     raise_on_nonconvergence: bool = False
-    # TPU-native extensions (absent in the reference): block capacity policy.
-    k_out: Optional[int] = None          # slots per block-row for results
-    row_chunk: Optional[int] = None      # SpGEMM accumulator chunking
-    # Iterations fused into one compiled lax.scan between host syncs (1 =
-    # exact reference semantics: converge check every iteration).  Higher
-    # values amortize dispatch latency; the solve may overrun convergence
-    # by up to iters_per_sync - 1 harmless extra iterations.
+    # Extensions absent in the reference.  Block capacity: slots per
+    # block-row of every product (None: each multiply grows to the
+    # structural fill it measures; parallel/algebra.capacity_policy).
+    k_out: Optional[int] = None
+    # Accepted for parity with the reference and ignored: the JAX
+    # package chunks the rows of its TPU kernels to fit their scalar
+    # memory; the CUDA kernels (ops/spgemm.py) take every row at once.
+    row_chunk: Optional[int] = None
+    # Iterations per host read (1 = exact reference semantics: converge
+    # check every iteration).  With more, PM, TRS2, TRS4, HPCP, the
+    # Hotelling inverse, CG and the Newton-Schulz square roots and sign
+    # run solvers/common.run_chunked: a chunk of that many steps with no
+    # host read, captured once as a CUDA graph on a card with a grid of
+    # one rank and replayed (common.release_graphs() frees it,
+    # common.uncaptured() runs the same chunk without a graph).  The
+    # solve may overrun convergence by up to iters_per_sync - 1
+    # iterations.  Every other solver runs eagerly, as in the reference.
     iters_per_sync: int = 1
-    # Chunked-mode response when measured structural fill exceeds the
-    # pinned capacity: 'grow' (redo chunk at the needed capacity — the
-    # reference's never-drop pool growth), 'warn', 'raise', 'ignore'.
-    # Truncation quality note ('truncate'/'warn'/'ignore', or 'grow'
-    # capped at the panel width): overflowing rows keep the k_out LOWEST
-    # column ids — a structural rule, cheap in-kernel — not the k_out
+    # Response when a product's structural fill exceeds the capacity
+    # (parallel/algebra.matmul; a chunk's pinned capacity in
+    # run_chunked): 'grow' (regrow, and redo a chunk, at the needed
+    # capacity -- the reference's never-drop pool growth), 'warn',
+    # 'raise', 'ignore'.  Truncation ('warn'/'ignore', or 'grow' capped
+    # at the panel width) keeps each overflowing row's k_out LOWEST
+    # column ids, as the reference's kernels do, not its k_out
     # largest-norm blocks, so a truncated solve can drop a row's
     # numerically largest block.  Size k_out (or let 'grow' run) so
     # truncation never fires on converged workloads.
     on_overflow: str = "grow"
-    # MXU pass count for the SpGEMM kernel: 'high' (3 bf16 passes,
-    # ~2x MXU throughput, ~1e-6 relative dot error — the DEFAULT since
-    # r5: at solver level it converges in 10 iterations vs 9 for
-    # 'highest' on the trs4_10k bench with oracle error 1.4e-5, well
-    # inside the reference's 1e-4 acceptance bar, using the
-    # plateau-robust idempotency monitor that 'auto' selects for it) or
-    # 'highest' (full f32, 6 passes — exact energy-diff reference
-    # parity, opt-in for tolerance-critical work).
+    # The SpGEMM tier (ops/spgemm.kernel_tier), for float32 blocks:
+    # 'high' (the default, as in the reference) is the bfloat16 hi/lo
+    # split, a_hi b_hi + a_lo b_hi + a_hi b_lo with float32 sums, run
+    # as the split pass and one wgmma product on the tensor cores
+    # (csrc/tc.cuh); 'bf16' and 'default' the hi part alone on the same
+    # product; 'highest' exact float32 FMAs on the cp.async ring
+    # (csrc/tile.cuh).  float64 runs exact at every tier.
     precision: str = "high"
     # Convergence functional for the purification solvers (PM / TRS2 /
     # TRS4 / HPCP).  'energy' = successive energy differences (exact
@@ -154,26 +177,28 @@ class SolverParameters:
     # 'idempotency' = the per-electron idempotency residual
     # (tr(X) - tr(X^2)) / nel, monitored as a value.  The residual
     # decays quadratically and then PLATEAUS at the arithmetic floor,
-    # where the windowed automatic monitor fires deterministically —
-    # energy differences instead wander in the reduced-precision noise
-    # (precision='high' cost trs4_10k 23 iterations vs 8 in r4).
-    # 'auto' (default): 'energy' at precision='highest', 'idempotency'
-    # otherwise.
+    # where the plateau monitor fires deterministically -- energy
+    # differences instead wander in the noise of a reduced-precision
+    # tier.  'auto' (default): 'energy' at precision='highest',
+    # 'idempotency' otherwise.
     convergence_metric: str = "auto"
     # Compensated (two-float) scalar reductions for the monitor scalars
-    # and reported energy: f32 quantizes an |E|~1e5 energy at ~0.01
-    # absolute, so converge_diff below that is uncertifiable at the
-    # 2^20-row scale without this.  The matmul stream stays f32; only
-    # trace/dot feeding sigma, the monitor, and the energy pay the ~4
-    # extra VPU passes (core/bell.py comp_sum).
+    # and the reported energy (core/bell.comp_sum): float32 sums
+    # quantize a large energy at a coarse absolute step, so a
+    # converge_diff below it cannot be certified at the 2^20-row scale
+    # without them.  The products stay float32; only the traces and dots
+    # feeding sigma, the monitor and the energy pay the extra passes
+    # (solvers/density.py says which scalars each solver compensates).
     compensated_scalars: bool = False
-    # SpGEMM dispatch override (None = measured auto gates).  The main
-    # production value is 'pallas_band': compile ONLY the windowed band
-    # kernel for workloads known to stay banded — the auto dispatch's
-    # runtime cond also compiles the general fallback arm, whose chunk
-    # buffers cost ~5 GB of reserved HBM at the 2^20-row bench shape.
-    # A violated band assumption is detected (poisoned fill count ->
-    # the on_overflow machinery), never silently wrong.
+    # SpGEMM method override (None = parallel/algebra.matmul's own
+    # choice).  The names are the JAX package's.  'pallas' runs the
+    # kernels, the band kernel (csrc/spgemm_band.cu) where the band plan
+    # holds and the general kernel (csrc/spgemm_general.cu) otherwise;
+    # 'pallas_band' runs only the band kernel, for workloads known to
+    # stay banded: a violated band assumption is detected (poisoned
+    # fill count -> the on_overflow machinery), never silently wrong;
+    # 'acc', 'cand' and 'dense' are the reference's XLA tiers in plain
+    # torch (core/bell.py), for block sizes the kernels do not take.
     matmul_method: Optional[str] = None
 
     def copy(self) -> "SolverParameters":
