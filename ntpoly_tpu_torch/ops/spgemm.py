@@ -62,20 +62,22 @@ import numpy as np
 import torch
 
 from ..config import EMPTY
+from ..utils import trace
 
 Tensor = torch.Tensor
 
-# kernel launches per wrapper (reset with reset_launches); a launch under
-# a device predicate (``run``), whose blocks may all return unread,
-# counts under the kernel's name with "_pred" appended
-launches = {"spgemm_general": 0, "spgemm_band": 0, "spgemm_stream": 0,
-            "spgemm_window": 0, "spgemm_uniform": 0, "split_bf16": 0,
-            "spgemm_band_pred": 0, "spgemm_general_pred": 0}
+# kernel launches per wrapper (the counter group 'launches' of
+# utils/trace.py, reset with reset_launches); a launch under a device
+# predicate (``run``), whose blocks may all return unread, counts under
+# the kernel's name with "_pred" appended
+launches = trace.counter_group("launches", (
+    "spgemm_general", "spgemm_band", "spgemm_stream", "spgemm_window",
+    "spgemm_uniform", "split_bf16", "spgemm_band_pred",
+    "spgemm_general_pred"))
 
 
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    trace.reset_counters("launches")
 
 
 # ----------------------------------------------------------------------------
@@ -955,7 +957,8 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
     dt = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
     if dt.is_complex:
         raise TypeError("the SpGEMM kernels are real-only")
-    plan, occp, ucnt = structure_plan(a_cols, b_cols, k_out)
+    with trace.span("ntp.structure"):
+        plan, occp, ucnt = structure_plan(a_cols, b_cols, k_out)
     threshold = float(np.float32(threshold))
     alpha_dev = None
     if isinstance(alpha, torch.Tensor):
@@ -978,18 +981,20 @@ def spgemm(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
             "the general kernel instead")
     occ_used = occp
     if g_rows is not None:
-        pad = -R % g_rows
-        ac_p = torch.cat([a_cols, a_cols.new_full((pad, KA), EMPTY)])
-        _, width = _v3_window(ac_p, g_rows)
         span = _v4_span(KA, KB, k_out)
-        gg0, occ0, band_ok = band_plan(a_cols, b_cols, k_out, span=span)
-        use_band = (width <= wv4) & band_ok
-        occ_band = occ0[:, None] + torch.arange(
-            k_out, dtype=torch.int32, device=occ0.device)
+        with trace.span("ntp.structure"):
+            pad = -R % g_rows
+            ac_p = torch.cat([a_cols, a_cols.new_full((pad, KA), EMPTY)])
+            _, width = _v3_window(ac_p, g_rows)
+            gg0, occ0, band_ok = band_plan(a_cols, b_cols, k_out,
+                                           span=span)
+            use_band = (width <= wv4) & band_ok
+            occ_band = occ0[:, None] + torch.arange(
+                k_out, dtype=torch.int32, device=occ0.device)
         if band_mode == "select":
             cb, nm = _select(args, gg0, plan, use_band, span, kw)
             occ_used = torch.where(use_band, occ_band, occp)
-        elif band_mode == "force" or bool(use_band):
+        elif band_mode == "force" or trace.read(use_band):
             cb, nm = spgemm_band(*args, gg0, span=span, **kw)
             occ_used = occ_band
             if band_mode == "force":

@@ -37,6 +37,7 @@ import torch
 from ..config import EMPTY
 from ..core import bell
 from ..ops import spgemm as sp
+from ..utils import trace as tr
 from ..utils.errors import ComplexSupportError, NTPolyError
 from ..utils.logging import logger
 from .pmatrix import PSMatrix
@@ -92,13 +93,13 @@ def capacity_policy(k_out: int | None = None,
             drain_deferred_checks()
 
 
-# matmul calls, counted as the kernels' launches are (reset with
-# reset_multiplies)
-multiplies = {"matmul": 0}
+# matmul calls, counted as the kernels' launches are (the counter group
+# 'multiplies' of utils/trace.py, reset with reset_multiplies)
+multiplies = tr.counter_group("multiplies", ("matmul",))
 
 
 def reset_multiplies() -> None:
-    multiplies["matmul"] = 0
+    tr.reset_counters("multiplies")
 
 
 # deferred overflow / band-violation checks: entries are
@@ -119,7 +120,7 @@ def drain_deferred_checks():
     if not _pending_checks:
         return
     pend, _pending_checks = _pending_checks, []
-    vals = torch.stack([p[0] for p in pend]).tolist()
+    vals = tr.read(torch.stack([p[0] for p in pend]))
     band_bad = [p for p, v in zip(pend, vals) if p[3] and v >= EMPTY]
     over = [(p, v) for p, v in zip(pend, vals)
             if p[1] is not None and EMPTY > v > p[1]]
@@ -195,7 +196,8 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
     agc, agb, bgc, bgb = _panels(a, b)
     dev = agc.device
     if want_fill:
-        fill = sp.structural_fill(agc, bgc).amax()
+        with tr.span("ntp.structure"):
+            fill = sp.structural_fill(agc, bgc).amax()
     else:
         fill = torch.zeros((), dtype=torch.int32, device=dev)
     if S > 1:
@@ -225,29 +227,32 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
                                   band_mode="force" if band else
                                   "select" if select else "auto")
         if band and k_run > k_out:
-            bad = bucnt.amax() >= EMPTY
-            cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
-            cc, cb = bell.compact(cc, cb, k_out)
-            fill = torch.where(bad, torch.full((), EMPTY, dtype=torch.int32,
-                                               device=dev), cnt)
+            with tr.span("ntp.compact", timed=True):
+                bad = bucnt.amax() >= EMPTY
+                cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
+                cc, cb = bell.compact(cc, cb, k_out)
+                fill = torch.where(bad, torch.full((), EMPTY,
+                                                   dtype=torch.int32,
+                                                   device=dev), cnt)
             compacted = True
         elif band:
             fill = torch.maximum(fill, bucnt.amax())
     if S > 1:
         gc, gb = _gather_slices(g, cc, cb)
-        if compacted:
-            # the merged need, not each slice's filtered count: slices
-            # that each fit k_out can overflow it together.  One merge at
-            # full width; a slot is its id's rank, so its first k_out
-            # slots are the merge at k_out
-            mc, mb = bell.merge(gc, gb, gc.shape[-1], threshold)
-            merged = (mc != EMPTY).sum(dim=-1).amax().to(torch.int32)
-            fill = torch.where(fill >= EMPTY, fill,
-                               torch.maximum(fill, merged))
-            cc = mc[..., :k_out].contiguous()
-            cb = mb[..., :k_out, :, :].contiguous()
-        else:
-            cc, cb = bell.merge(gc, gb, k_out, threshold)
+        with tr.span("ntp.compact", timed=True):
+            if compacted:
+                # the merged need, not each slice's filtered count:
+                # slices that each fit k_out can overflow it together.
+                # One merge at full width; a slot is its id's rank, so
+                # its first k_out slots are the merge at k_out
+                mc, mb = bell.merge(gc, gb, gc.shape[-1], threshold)
+                merged = (mc != EMPTY).sum(dim=-1).amax().to(torch.int32)
+                fill = torch.where(fill >= EMPTY, fill,
+                                   torch.maximum(fill, merged))
+                cc = mc[..., :k_out].contiguous()
+                cb = mb[..., :k_out, :, :].contiguous()
+            else:
+                cc, cb = bell.merge(gc, gb, k_out, threshold)
     stats = torch.stack([fill.to(torch.int32),
                          bell.used_slots(cc).amax().to(torch.int32)])
     return cc[None], cb[None], g.group("all").max(stats)
@@ -279,7 +284,7 @@ def fill_bound(a: PSMatrix, b: PSMatrix) -> int:
     row of the product over the grid (one host read; collective)."""
     agc, _, bgc, _ = _panels(a, b, blocks=False)
     fill = sp.structural_fill(agc, bgc).amax().reshape(1)
-    return int(a.grid.group("all").max(fill))
+    return int(tr.read(a.grid.group("all").max(fill))[0])
 
 
 def _k_bucket(n: int, cap: int) -> int:
@@ -302,6 +307,7 @@ def _pick_method(a: PSMatrix, b: PSMatrix, k_out: int) -> str:
     return "cand" if n_cand <= max(64, 8 * k_out) else "acc"
 
 
+@tr.spanned("ntp.matmul", timed=True)
 def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
            k_out: int | None = None, method: str = "auto",
            on_overflow: str | None = None,
@@ -368,7 +374,7 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
                          k_out if on_overflow == "warn" else None,
                          "matmul", band)
             break
-        need, used = stats.tolist()       # ONE host sync per multiply
+        need, used = tr.read(stats)       # ONE host sync per multiply
         if band and need >= EMPTY:
             raise NTPolyError(
                 "matmul(method='pallas_band'): operands violate the "
@@ -388,6 +394,7 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
                 cb = cb[..., :k_eff, :, :]
             break
         k_out = _k_bucket(need, cap)
+        tr.counts["matmul.regrows"] += 1
         if _policy_get("verbose") and _policy_get("k_out"):
             logger.write_comment(f"capacity regrown to {k_out} (fill "
                                  f"{need})")
@@ -421,6 +428,7 @@ def increment(a: PSMatrix, b: PSMatrix, alpha=1.0, beta=1.0, threshold=0.0,
                        k_out=k_out, on_overflow=on_overflow)
 
 
+@tr.spanned("ntp.increment", timed=True)
 def increment_n(mats, coeffs, threshold=0.0, k_out: int | None = None,
                 on_overflow: str | None = None) -> PSMatrix:
     """sum_i coeffs[i] * M_i in ONE fused k-way merge; a coefficient may
@@ -444,12 +452,12 @@ def increment_n(mats, coeffs, threshold=0.0, k_out: int | None = None,
             if _policy_get("defer"):
                 _defer_check(stats[0], k, "increment")
                 return out
-            need = int(stats[0])
+            need = int(tr.read(stats[0]))
             if need > k:
                 warnings.warn(f"increment: structural fill {need} "
                               f"exceeds capacity {k} — result truncated")
             return out
-        need, ue = stats.tolist()         # ONE sync ('grow')
+        need, ue = tr.read(stats)         # ONE sync ('grow')
         if k >= cap or need <= k:
             k_eff = _k_bucket(ue, cap)
             if k_eff < out.k:
@@ -491,27 +499,32 @@ def _sum_pair(a: PSMatrix, p: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo])
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def trace(a: PSMatrix) -> torch.Tensor:
     """Matrix trace (0-d tensor on the device; collective)."""
     return _sum(a, bell.trace(a.col_ids, a.blocks, a.row_offset))
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def dot(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
     """sum_ij conj(A_ij) B_ij (0-d tensor on the device; collective)."""
     return _sum(a, bell.dot(a.col_ids, a.blocks, b.col_ids, b.blocks))
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def grand_sum(a: PSMatrix) -> torch.Tensor:
     """The sum of every stored value (0-d tensor; collective)."""
     return _sum(a, bell.grand_sum(a.blocks))
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def trace_pair(a: PSMatrix) -> torch.Tensor:
     """Compensated trace -> [2] (hi, lo)."""
     d = bell.trace_blocks(a.col_ids, a.blocks, a.row_offset)
     return _sum_pair(a, bell.comp_sum(torch.diagonal(d, dim1=-2, dim2=-1)))
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def dot_pair(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
     """Compensated dot -> [2] (hi, lo), resolving the sum to ~n*eps^2."""
     prod = bell.align_mul(a.col_ids, a.blocks, b.col_ids, b.blocks)
@@ -546,7 +559,7 @@ def diagonal_scale(a: PSMatrix, dvals, side: str = "right") -> PSMatrix:
 
 def host_pair(p) -> float:
     """(hi, lo) pair -> float64 on the host (one readback)."""
-    hi, lo = (float(v) for v in p.double().tolist())
+    hi, lo = (float(v) for v in tr.read(p.double()))
     return hi + lo
 
 
@@ -579,6 +592,7 @@ def diagonal_values(a: PSMatrix) -> torch.Tensor:
     return _rows_sum(a, d, "cols", "rows")
 
 
+@tr.spanned("ntp.reduce", timed=True)
 def gershgorin_bounds(a: PSMatrix):
     """Spectral bounds (lo, hi) as 0-d tensors: min/max over columns of
     center -/+ radius.  Padded columns contribute [0, 0]."""
@@ -625,7 +639,7 @@ def is_identity(a: PSMatrix) -> bool:
     gi = rows[..., None, None] * bs + torch.arange(bs, device=dev)[:, None]
     want = torch.where((a.col_ids == rows)[..., None, None] & (gi < a.dim),
                        eye, 0)
-    return float(_sum(a, (a.blocks - want).abs().sum())) == 0.0
+    return tr.read(_sum(a, (a.blocks - want).abs().sum())) == 0.0
 
 
 # ----------------------------------------------------------------------------
@@ -652,7 +666,7 @@ def _transposed_coo(a: PSMatrix):
     if plane.size > 1:
         dest = ((new_r // a.nbr) * g.cols + new_c // a.panel_nb).long()
         order = torch.argsort(dest, stable=True)
-        counts = torch.bincount(dest, minlength=plane.size).tolist()
+        counts = tr.read(torch.bincount(dest, minlength=plane.size))
         ij = plane.all_to_all_v(torch.stack([new_r, new_c], -1)[order],
                                 counts)
         bl = blocks[order]
@@ -679,7 +693,7 @@ def transpose(a: PSMatrix, k_out: int | None = None,
     on_overflow = on_overflow or _policy_get("on_overflow") or "grow"
     rows, cols, blocks, fill = _transposed_coo(a)
     if on_overflow == "grow" and k < cap:
-        need = int(a.grid.group("all").max(fill.reshape(1)))
+        need = int(tr.read(a.grid.group("all").max(fill.reshape(1)))[0])
         if need > k:
             k = _k_bucket(need, cap)
     oc, ob = bell.from_block_coo(rows, cols, blocks,

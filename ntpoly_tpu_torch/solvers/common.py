@@ -20,9 +20,9 @@ import torch
 
 from ..config import EMPTY
 from ..core import bell
-from ..ops import spgemm as sp
 from ..parallel import algebra as alg
 from ..parallel import pmatrix as PM
+from ..utils import trace
 from ..utils.errors import NTPolyError
 from ..utils.logging import logger, sub_log
 from ..utils.permutation import permute_matrix, undo_permute_matrix
@@ -39,7 +39,9 @@ class solver_log:
     """Verbose YAML block (header, method, citations, parameters), and
     the capacity policy of the solve: the pinned capacity
     params.k_out, 'grow' unless params.on_overflow is 'ignore'
-    ('truncate') or 'warn' (checks deferred to one sync at the end)."""
+    ('truncate') or 'warn' (checks deferred to one sync at the end).
+    The whole block is one ``ntp.solve`` span (``utils/trace.py``),
+    which starts a new solve id."""
 
     def __init__(self, params, header: str, method: str | None = None,
                  citations: tuple[str, ...] = (), extra: dict | None = None):
@@ -47,8 +49,11 @@ class solver_log:
         self.method, self.citations = method, citations
         self.extra = extra or {}
         self._policy = None
+        self._span = None
 
     def __enter__(self):
+        self._span = trace.span(trace.SOLVE)
+        self._span.__enter__()
         if self.params.be_verbose:
             logger.write_header(self.header)
             logger.enter_sub_log()
@@ -72,11 +77,15 @@ class solver_log:
         return self
 
     def __exit__(self, *exc):
-        if self._policy is not None:
-            self._policy.__exit__(*exc)
-            self._policy = None
-        if self.params.be_verbose:
-            logger.exit_sub_log()
+        try:
+            if self._policy is not None:
+                self._policy.__exit__(*exc)
+                self._policy = None
+            if self.params.be_verbose:
+                logger.exit_sub_log()
+        finally:
+            self._span.__exit__(*exc)
+            self._span = None
         return False
 
 
@@ -108,8 +117,10 @@ class iteration_log:
 
 def finish_iterations(params, total_iterations, mat=None, monitor=None,
                       solver: str = "Solver"):
-    """Log totals; with params.raise_on_nonconvergence, raise
-    ConvergenceError when the monitor never fired."""
+    """Log totals (and count them, ``solver.iterations``); with
+    params.raise_on_nonconvergence, raise ConvergenceError when the
+    monitor never fired."""
+    trace.counts["solver.iterations"] += total_iterations
     if params.be_verbose:
         logger.write_element("Total Iterations", total_iterations)
         if mat is not None:
@@ -143,7 +154,7 @@ def prologue_scalars(wh):
     import torch
     lo, hi = alg.gershgorin_bounds(wh)
     tr = alg.trace(wh)
-    v = torch.stack([lo, hi, tr]).tolist()
+    v = trace.read(torch.stack([lo, hi, tr]))
     return float(v[0]), float(v[1]), float(v[2])
 
 
@@ -188,6 +199,10 @@ def identity_like(mat) -> PM.PSMatrix:
 
 
 def real_scalar(x) -> float:
+    """A device scalar as a float (a counted host read,
+    ``trace.read``); a number as it is."""
+    if isinstance(x, torch.Tensor):
+        return float(trace.read(x.reshape(())))
     return float(x)
 
 
@@ -298,15 +313,6 @@ def _side_stream() -> torch.cuda.Stream:
     return _SIDE[dev]
 
 
-def _counts():
-    return dict(sp.launches), alg.multiplies["matmul"]
-
-
-def _set_counts(launches: dict, mults: int) -> None:
-    sp.launches.update(launches)
-    alg.multiplies["matmul"] = mults
-
-
 class _Graph:
     """A chunk captured once as a ``torch.cuda.CUDAGraph``.
 
@@ -316,11 +322,13 @@ class _Graph:
     taken uncaptured on a side stream first (the warm-up
     ``torch.cuda.graphs`` asks for: kernel build, library handles),
     then the whole chunk is captured.  A capture launches nothing, so
-    the kernel launches and multiplies counted while capturing are
-    taken back and added on each replay instead.  Each call copies the
-    carry into the static inputs, replays, and returns the graph's own
-    outputs, which the next replay overwrites."""
+    every counter of ``utils/trace.py`` bumped while capturing (kernel
+    launches, multiplies, ...) is set back and its increment added on
+    each replay instead.  Each call copies the carry into the static
+    inputs, replays, and returns the graph's own outputs, which the
+    next replay overwrites."""
 
+    @trace.spanned("ntp.chunk.capture")
     def __init__(self, run, carry, consts, chunk: int, key):
         self.carry_in = [x.clone() for x in _leaves(carry)]
         self.const_in = [x.clone() for x in _leaves(consts)]
@@ -331,7 +339,7 @@ class _Graph:
         with torch.cuda.stream(side):
             run(c_in, k_in, 1)
         torch.cuda.current_stream().wait_stream(side)
-        before = _counts()
+        before = trace.snapshot()
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph):
@@ -339,10 +347,9 @@ class _Graph:
         except Exception as err:
             raise RuntimeError(f"capturing the chunk {key!r} failed: "
                                f"{err}") from err
-        launches, mults = _counts()
-        self.launches = {k: v - before[0][k] for k, v in launches.items()}
-        self.mults = mults - before[1]
-        _set_counts(*before)
+        self.counted = trace.since(before)
+        trace.restore(before)
+        trace.counts["graph.captures"] += 1
         self.solve = None       # the solve whose constants it holds
 
     def load(self, consts) -> None:
@@ -350,14 +357,14 @@ class _Graph:
         for dst, src in zip(self.const_in, _leaves(consts)):
             dst.copy_(src)
 
+    @trace.spanned("ntp.chunk.replay")
     def __call__(self, carry):
         for dst, src in zip(self.carry_in, _leaves(carry)):
             if dst is not src:
                 dst.copy_(src)
         self.graph.replay()
-        for k, v in self.launches.items():
-            sp.launches[k] += v
-        alg.multiplies["matmul"] += self.mults
+        trace.add(self.counted)
+        trace.counts["graph.replays"] += 1
         return self.out
 
 
@@ -471,60 +478,62 @@ def run_chunked(step_fn, carry0, consts, params, monitor, ilog, *,
     prev = None
     total = 0
     while total < params.max_iterations:
-        new_carry, fill, scal = chunk_of(carry0)
-        # the chunk's ONE host read: its rows and its largest fill
-        vals = torch.cat([scal.reshape(-1),
-                          fill.to(scal.dtype).reshape(1)]).tolist()
-        need = int(vals[-1])
-        rows = [vals[i * scal.shape[1]:(i + 1) * scal.shape[1]]
-                for i in range(chunk)]
-        if need >= EMPTY:
-            raise NTPolyError(
-                "chunked solve: matmul_method='pallas_band' operands "
-                "violate the band assumption; rerun without the method "
-                "override")
-        if need > k_pin and mode != "ignore":
-            msg = (f"chunked solve: structural fill {need} exceeds pinned "
-                   f"capacity {k_pin} — results truncated this chunk")
-            if mode == "raise":
-                raise NTPolyError(msg)
-            if mode == "grow" and k_pin < cap:
-                # redo the chunk at the needed capacity; only the carry
-                # is padded
-                del new_carry, fill, scal
-                k_pin = min(alg._k_bucket(need, cap), cap)
-                carry0 = repad(carry0, k_pin)
-                if params.be_verbose:
-                    logger.write_comment(
-                        f"capacity regrown to {k_pin} (fill {need}); "
-                        "chunk redone")
-                continue
-            warnings.warn(msg)
-            if ilog is not None and params.be_verbose:
-                logger.write_comment(msg)
-        carry0 = new_carry
-        converged = False
-        for raw in rows:
-            row = tuple(raw)
-            if row_transform is not None:
-                row = row_transform(row)
-            history.append(row)
-            total += 1
-            if conv_mode == "diff":
-                val = row[conv_index] if prev is None \
-                    else row[conv_index] - prev
-                prev = row[conv_index]
-            else:
-                val = row[conv_index]
-            monitor.append(val)
-            if ilog is not None:
-                ilog.step(**{name: row[i]
-                             for i, name in enumerate(aux_names)})
-            if monitor.check_converged(params.be_verbose):
-                converged = True
+        with trace.span("ntp.chunk"):
+            new_carry, fill, scal = chunk_of(carry0)
+            # the chunk's ONE host read: its rows and its largest fill
+            vals = trace.read(torch.cat([scal.reshape(-1),
+                                         fill.to(scal.dtype).reshape(1)]))
+            need = int(vals[-1])
+            rows = [vals[i * scal.shape[1]:(i + 1) * scal.shape[1]]
+                    for i in range(chunk)]
+            if need >= EMPTY:
+                raise NTPolyError(
+                    "chunked solve: matmul_method='pallas_band' operands "
+                    "violate the band assumption; rerun without the method "
+                    "override")
+            if need > k_pin and mode != "ignore":
+                msg = (f"chunked solve: structural fill {need} exceeds pinned "
+                       f"capacity {k_pin} — results truncated this chunk")
+                if mode == "raise":
+                    raise NTPolyError(msg)
+                if mode == "grow" and k_pin < cap:
+                    # redo the chunk at the needed capacity; only the carry
+                    # is padded
+                    del new_carry, fill, scal
+                    trace.counts["chunk.redos"] += 1
+                    k_pin = min(alg._k_bucket(need, cap), cap)
+                    carry0 = repad(carry0, k_pin)
+                    if params.be_verbose:
+                        logger.write_comment(
+                            f"capacity regrown to {k_pin} (fill {need}); "
+                            "chunk redone")
+                    continue
+                warnings.warn(msg)
+                if ilog is not None and params.be_verbose:
+                    logger.write_comment(msg)
+            carry0 = new_carry
+            converged = False
+            for raw in rows:
+                row = tuple(raw)
+                if row_transform is not None:
+                    row = row_transform(row)
+                history.append(row)
+                total += 1
+                if conv_mode == "diff":
+                    val = row[conv_index] if prev is None \
+                        else row[conv_index] - prev
+                    prev = row[conv_index]
+                else:
+                    val = row[conv_index]
+                monitor.append(val)
+                if ilog is not None:
+                    ilog.step(**{name: row[i]
+                                 for i, name in enumerate(aux_names)})
+                if monitor.check_converged(params.be_verbose):
+                    converged = True
+                    break
+            if converged:
                 break
-        if converged:
-            break
     if captured:
         # the graph's outputs are overwritten by its next replay
         carry0 = _rebuild(carry0, iter([x.clone()

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel import algebra as alg
+from ..utils import trace
 from .common import (resolve, solver_log, iteration_log, finish_iterations,
                      orthogonalize, deorthogonalize, maybe_permute,
                      maybe_unpermute, identity_like, real_scalar,
@@ -49,7 +50,7 @@ from .parameters import SolverParameters
 
 def _scalars(*xs):
     """Device scalars as floats in ONE readback."""
-    return torch.stack([torch.as_tensor(x) for x in xs]).tolist()
+    return trace.read(torch.stack([torch.as_tensor(x) for x in xs]))
 
 
 def _traces(params, *mats):
@@ -57,7 +58,7 @@ def _traces(params, *mats):
     ``compensated_scalars`` (see the module's docstring)."""
     if params.compensated_scalars:
         pairs = torch.stack([alg.trace_pair(m).double() for m in mats])
-        return pairs.sum(dim=1).tolist()
+        return trace.read(pairs.sum(dim=1))
     return _scalars(*(alg.trace(m) for m in mats))
 
 
@@ -77,6 +78,7 @@ def _step_energy(x_new, whc, compensated) -> float:
     return real_scalar(alg.dot(x_new, whc))
 
 
+@trace.spanned("ntp.mu")
 def _bisect_chemical_potential(replay, total_iterations, params):
     """Bisection of the accumulated scalar polynomial recursion on
     [0, 1]."""
@@ -96,6 +98,7 @@ def _bisect_chemical_potential(replay, total_iterations, params):
     return midpoint
 
 
+@trace.spanned("ntp.prologue")
 def _prologue(h, isq, params):
     """(identity, WH, ISQ^H, e_min, e_max, trace(WH)): the working
     Hamiltonian in the orthogonal basis, permuted when asked."""
@@ -106,6 +109,7 @@ def _prologue(h, isq, params):
     return imat, wh, isqt, e_min, e_max, tr_wh
 
 
+@trace.spanned("ntp.epilogue")
 def _epilogue(x, isq, isqt, params):
     """Undo the permutation, then back to the overlap's basis."""
     return deorthogonalize(maybe_unpermute(params, x), isq, isqt, params)
