@@ -37,7 +37,13 @@ Phases, one line each with its seconds:
    'high' and at the parity shape (f64); each of these launches once
    more under the device predicate (``run``): with 1 bit for bit the
    plain launch and timed beside it, with 0 its output untouched and
-   timed.
+   timed; then the slot reductions (csrc/reduce.cu) at the flagship
+   loop's shapes, X^2 . X and X^2 . X^2 at K 5, X . WH at K 5 against
+   3 (compensated) and the trace of X, plain and compensated, each
+   within 1e3 eps^2 of the sum of magnitudes of its plain version's
+   compensated pair (a bound that a skipped block row, and in the dots
+   a float32 sum, are shown to miss), the same bits twice, and timed
+   beside its byte bound and its plain version.
 5. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
    full size, 2^19 rows of the chain at bs 128, every arm timed, and
    torch.bmm in float32 over the same number of dense block products
@@ -272,6 +278,7 @@ import torch
 import ntpoly_tpu_torch as nt
 from ntpoly_tpu_torch.config import EMPTY
 from ntpoly_tpu_torch.core import bell
+from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
 from ntpoly_tpu_torch.parallel.grid import ProcessGrid
@@ -841,6 +848,130 @@ def phase_timing(errs, times):
     if fast < 2:
         raise AssertionError("the band kernel's 'high' is not twice as "
                              "fast as its 'highest'")
+    reduction_timing(ac, ab)
+
+
+def reduction_timing(xc, xb) -> None:
+    """The slot reductions (``ops/reduce.py``) at the flagship TRS4
+    loop's shapes, 8192 rows, bs 128, f32: X^2 . X and X^2 . X^2 at K 5,
+    X . WH at K 5 against 3 (compensated) and the trace of X, plain and
+    compensated.  "X^2" is a copy of X (other storage, so that the
+    kernel's A-is-B path serves only the second case) and WH holds X's
+    three middle slots, so that every dot sums squares and comes to its
+    sum of magnitudes.  Each kernel against its plain version's
+    compensated pair on the same card tensors within 1e3 eps^2 of the
+    sum of magnitudes (a plain result is the pair's float64 value, held
+    to the same bound), the same bits twice, and timed beside its plain
+    version and its bound: the bytes of the matched blocks (one operand
+    once where A is B) and the col ids, a diagonal element as its
+    32-byte sector, over 3.35 TB/s.  The bound is shown to catch a
+    kernel that skips a block row (the first case with row 0 emptied)
+    and a float32 sum (the plain versions' ``torch.sum``)."""
+    x2c, x2b = xc, xb.clone()
+    whc = xc[:, 1:4].contiguous()
+    whb = xb[:, 1:4].contiguous()
+    eps = torch.finfo(torch.float32).eps
+    blk = 128 * 128 * 4
+
+    def matched(ac, bc):
+        hit = (ac[:, :, None] == bc[:, None, :]) & (ac != EMPTY)[:, :, None]
+        return int(hit.sum())
+
+    def skipped(c):
+        """c with block row 0 emptied: a kernel that skips that row."""
+        cut = c.clone()
+        cut[0] = EMPTY
+        return cut
+
+    def dot_case(ac, ab, bc, bb, comp):
+        n = matched(ac, bc)
+        nbytes = (n * blk * (1 if ab is bb else 2)
+                  + 4 * (ac.numel() + bc.numel()))
+        mag = float(bell.align_mul(ac, ab.abs(), bc, bb.abs()).double()
+                    .sum())
+        return (lambda c=comp: red.slot_dot(ac, ab, bc, bb, compensated=c),
+                lambda c=comp: red.slot_dot_plain(ac, ab, bc, bb,
+                                                  compensated=c),
+                lambda: red.slot_dot(skipped(ac), ab, bc, bb,
+                                     compensated=comp),
+                mag, nbytes)
+
+    def trace_case(c, b, comp):
+        ar = torch.arange(c.shape[0], device=c.device)[:, None]
+        n = int((c == ar).sum()) * 128
+        mag = float(torch.diagonal(bell.trace_blocks(c, b.abs()), dim1=-2,
+                                   dim2=-1).double().sum())
+        return (lambda k=comp: red.slot_trace(c, b, 0, compensated=k),
+                lambda k=comp: red.slot_trace_plain(c, b, 0, compensated=k),
+                lambda: red.slot_trace(skipped(c), b, 0, compensated=comp),
+                mag, 32 * n + 4 * c.numel())
+
+    def value(x):
+        return float(x.double().sum())
+
+    cases = [("dot(X^2, X) K 5, 5", dot_case(x2c, x2b, xc, xb, False)),
+             ("dot(X^2, X^2) K 5, A is B", dot_case(x2c, x2b, x2c, x2b,
+                                                    False)),
+             ("dot_pair(X, WH) K 5, 3", dot_case(xc, xb, whc, whb, True)),
+             ("trace(X)", trace_case(xc, xb, False)),
+             ("trace_pair(X)", trace_case(xc, xb, True))]
+    for what, (kern, plain, skip, mag, nbytes) in cases:
+        got, again = kern(), kern()
+        # the plain version's compensated pair: the sum to ~n eps^2
+        exact = value(plain(True))
+        torch.cuda.synchronize()
+        gap = abs(value(got) - exact)
+        tol = 1e3 * eps ** 2 * mag
+        if gap > tol or not torch.equal(got, again):
+            raise AssertionError(f"slot reduction {what}: kernel {got} "
+                                 f"against plain {exact!r}, gap {gap:.3e} "
+                                 f"> {tol:.3e} or bits differ between runs "
+                                 f"({again})")
+        del got, again
+        # what the bound catches: a skipped block row, and in the dots
+        # (sums of squares) a float32 sum; the trace's float32 sum is
+        # shown, a sum of signed terms that may land near its value
+        misses = {"row 0 skipped": abs(value(skip()) - exact),
+                  "float32 sum": abs(value(plain(False)) - exact)}
+        held = misses if what.startswith("dot") else {
+            "row 0 skipped": misses["row 0 skipped"]}
+        caught = ", ".join(f"{k} off by {v:.2e}" for k, v in misses.items())
+        if min(held.values()) <= tol:
+            raise AssertionError(f"slot reduction {what}: the bound "
+                                 f"{tol:.3e} misses a fault: {caught}")
+        ms = lowk.cuda_time(kern, 20)
+        rms = replayed_ms(kern, 20)
+        pms = lowk.cuda_time(plain, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  {what} 8192 rows bs 128 f32: kernel {ms:.3f} ms "
+              f"(replayed in a CUDA graph {rms:.3f} ms), plain {pms:.3f} "
+              f"ms, bound {bound:.3f} ms (bytes, {100 * bound / rms:.0f}% "
+              f"reached replayed), {nbytes / 1e9:.3f} GB, gap {gap:.2e} "
+              f"(tolerance {tol:.2e}; {caught}), same bits twice")
+
+
+def replayed_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured
+    in one CUDA graph and replayed, so that no host time (the wrapper's
+    Python) sits between the launches, as in a chunked solve's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def predicated(name, prec, shape, kern, kb, kn, reps, x) -> None:

@@ -20,10 +20,11 @@ Two departures from the JAX package's generator:
     of its page silently;
   * an eighth page, ``kernels.md``, says what each CUDA source in
     ``csrc/`` is, from what the package itself says: the TPU kernel the
-    source replaces, from the source's own header comment; the Python
-    wrapper that launches it and the plain PyTorch version beside it in
-    ``ops/spgemm.py``, with their docstrings; and the table of
-    ``ops.spgemm.kernel_tier``.  It quotes no times.
+    source replaces (or that it replaces none), from the source's own
+    header comment; the Python wrapper that launches it and the plain
+    PyTorch version beside it in ``ops/spgemm.py`` or ``ops/reduce.py``,
+    with their docstrings; and the table of ``ops.spgemm.kernel_tier``.
+    It quotes no times.
 
 The package imports ``torch`` and never ``jax``, so the generator runs
 where JAX cannot be imported.
@@ -118,6 +119,8 @@ IMPL_MODULES = {
 # a TPU kernel named in a CUDA source's header
 _REPLACES = re.compile(
     r"(ntpoly_tpu/ops/spgemm_pallas\.py|profile_lowk_r5\.py):(_kernel\w*)")
+# a CUDA source's header that says it replaces no TPU kernel
+_REPLACES_NONE = "Replaces no TPU kernel"
 # the plain version a wrapper's docstring names when it is not
 # ``<wrapper>_plain``
 _PLAIN_NAMED = re.compile(r"plain version\s+\(``(\w+)``\)")
@@ -185,19 +188,19 @@ def _header(path: Path) -> list[str]:
     return paras
 
 
-def _wrappers(sp, source: str) -> list[tuple]:
-    """(wrapper, plain version) pairs of ``ops/spgemm.py`` whose
+def _wrappers(mod, source: str) -> list[tuple]:
+    """(wrapper, plain version) pairs of the module ``mod`` whose
     wrapper's docstring names ``csrc/<source>``."""
     pairs = []
-    for name, fn in inspect.getmembers(sp, inspect.isfunction):
-        if name.startswith("_") or fn.__module__ != sp.__name__:
+    for name, fn in inspect.getmembers(mod, inspect.isfunction):
+        if name.startswith("_") or fn.__module__ != mod.__name__:
             continue
         if f"``csrc/{source}``" not in _doc(fn):
             continue
-        plain = getattr(sp, name + "_plain", None)
+        plain = getattr(mod, name + "_plain", None)
         if plain is None:
             named = _PLAIN_NAMED.search(_doc(fn))
-            plain = getattr(sp, named.group(1)) if named else None
+            plain = getattr(mod, named.group(1)) if named else None
         if plain is None:
             raise MissingNameError(f"no plain version of {name}")
         pairs.append((name, fn, plain))
@@ -208,6 +211,7 @@ def render_kernels() -> str:
     """The eighth page: each CUDA source, what it replaces, its wrappers
     and plain versions, and the tier table."""
     import torch
+    from ntpoly_tpu_torch.ops import reduce as red
     from ntpoly_tpu_torch.ops import spgemm as sp
     csrc = PACKAGE / "csrc"
     out = [f"# {KERNELS_TITLE}\n",
@@ -215,30 +219,37 @@ def render_kernels() -> str:
            "`pl.pallas_call` has a hand-written counterpart for NVIDIA "
            "Hopper (`sm_90a`) in `ntpoly_tpu_torch/csrc/`, built by "
            "`ntpoly_tpu_torch.ops._cuda` with `nvcc` at first use (never "
-           "at import).  Each is launched by a wrapper in "
-           "`ntpoly_tpu_torch.ops.spgemm`, which launches it for CUDA "
-           "tensors and runs its plain PyTorch version for CPU tensors; "
-           "each launch adds one to `ops.spgemm.launches` under the "
+           "at import); so do the slot reductions, which the JAX package "
+           "leaves to XLA.  Each is launched by a wrapper in "
+           "`ntpoly_tpu_torch.ops.spgemm` or `ntpoly_tpu_torch.ops.reduce`, "
+           "which launches it for CUDA tensors and runs its plain PyTorch "
+           "version for CPU tensors; each launch adds one to "
+           "`ops.spgemm.launches` or `ops.reduce.reductions` under the "
            "wrapper's name.  Rendered from the sources' header comments "
            "and the wrappers' docstrings.\n"]
     for path in sorted(csrc.glob("*.cu")):
         paras = _header(path)
+        text = " ".join(paras)
         replaced = list(dict.fromkeys(
-            f"{f}:{k}" for f, k in _REPLACES.findall(" ".join(paras))))
-        if not replaced:
+            f"{f}:{k}" for f, k in _REPLACES.findall(text)))
+        if not replaced and _REPLACES_NONE not in text:
             raise MissingNameError(f"{path.name} names no TPU kernel")
         out.append(f"## `csrc/{path.name}`\n")
         out.append(paras[0] + "\n")
-        out.append("Replaces: " + ", ".join(f"`{r}`" for r in replaced)
-                   + "\n")
-        out.extend(p + "\n" for p in paras[1:] if "Replaces" in p)
-        pairs = _wrappers(sp, path.name)
+        if replaced:
+            out.append("Replaces: " + ", ".join(f"`{r}`" for r in replaced)
+                       + "\n")
+        out.extend(p + "\n" for p in paras[1:]
+                   if "Replaces" in p or _REPLACES_NONE in p)
+        pairs = [(mod, *pair) for mod in (sp, red)
+                 for pair in _wrappers(mod, path.name)]
         if not pairs:
             raise MissingNameError(f"no wrapper launches {path.name}")
-        for name, fn, plain in pairs:
-            out.append(f"### `ops.spgemm.{name}{_sig(fn)}`\n")
+        for mod, name, fn, plain in pairs:
+            where = mod.__name__.removeprefix("ntpoly_tpu_torch.")
+            out.append(f"### `{where}.{name}{_sig(fn)}`\n")
             out.append(_doc(fn) + "\n")
-            out.append(f"Plain version: `ops.spgemm.{plain.__name__}"
+            out.append(f"Plain version: `{where}.{plain.__name__}"
                        f"{_sig(plain)}`\n")
             out.append(_doc(plain) + "\n")
     for path in sorted(csrc.glob("*.cuh")):
@@ -257,6 +268,8 @@ def render_kernels() -> str:
     out.append("Launch counters (`ops.spgemm.launches`, reset with "
                "`ops.spgemm.reset_launches()`): "
                + ", ".join(f"`{k}`" for k in sp.launches) + ".\n")
+    out.append("Reduction counters (`ops.reduce.reductions`): "
+               + ", ".join(f"`{k}`" for k in red.reductions) + ".\n")
     return "\n".join(out)
 
 

@@ -46,6 +46,8 @@ _SIGNATURES = {
                            ("_f32",)),
     "ntp_spgemm_uniform_tc": ((_P,) * 8 + (_I,) * 10 + (_D, _D, _P),
                               ("",)),
+    "ntp_slot_dot": ((_P,) * 6 + (_L,) * 4 + (_I,) * 6 + (_P,), _REAL),
+    "ntp_slot_trace": ((_P,) * 4 + (_L,) * 2 + (_I,) * 7 + (_P,), _REAL),
 }
 
 _lib = None
@@ -111,7 +113,7 @@ def build() -> Path:
             if proc.returncode != 0:
                 failed.append("link:\n" + proc.stdout + proc.stderr)
         if failed:
-            raise RuntimeError("nvcc failed building the SpGEMM kernels:\n"
+            raise RuntimeError("nvcc failed building the CUDA kernels:\n"
                                + "\n".join(failed))
         os.replace(part, out)
     return out

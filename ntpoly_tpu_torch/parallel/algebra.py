@@ -18,9 +18,15 @@ MatrixMultiply.f90:23-29).  Reductions sum over the rows x cols ranks of
 a slice only (slices are replicas), gathering every rank's partial and
 adding in rank order, so that every rank holds the same bits; vectors
 (column sums, the diagonal, ``spmm``) come back replicated.  On the
-1 x 1 x 1 grid every collective is the identity.  Host decisions (the
-'grow' policy, deferred checks, the solvers' monitors) read only such
-grid-wide values, so that every rank takes the same branch.
+1 x 1 x 1 grid every collective is the identity.  A rank's own part of
+a trace or dot, plain or compensated, comes from the slot reductions of
+``ops/reduce.py``: one kernel pass on the card, whose plain trace or dot
+is the float64 value of the compensated pair (for float32 matrices too:
+the same cost, and the digits that differences of such sums need), and
+elsewhere (the CPU, complex data, other block sizes) the reference's
+sums in the matrices' dtype.  Host decisions (the 'grow' policy,
+deferred checks, the solvers' monitors) read only such grid-wide
+values, so that every rank takes the same branch.
 
 The reference's row-chunked variants (``_compact_rows``, the chunked
 ``dot_pair`` and ``increment_n``), which bound the TPU's 16 GB of
@@ -36,6 +42,7 @@ import torch
 
 from ..config import EMPTY
 from ..core import bell
+from ..ops import reduce as red
 from ..ops import spgemm as sp
 from ..utils import trace as tr
 from ..utils.errors import ComplexSupportError, NTPolyError
@@ -499,16 +506,41 @@ def _sum_pair(a: PSMatrix, p: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo])
 
 
+def _slot_kernels(*mats: PSMatrix) -> bool:
+    """Do the slot reductions take the kernels of ``ops/reduce.py``
+    (launched on the card, their plain versions on the CPU): a dtype and
+    block size the kernels take, as :func:`_pick_method` routes the
+    multiply.  Complex data and other block sizes take the plain
+    versions on every device."""
+    dt = mats[0].dtype
+    for m in mats[1:]:
+        dt = torch.promote_types(dt, m.dtype)
+    return sp.eligible(dt, mats[0].bs)
+
+
+def _local_trace(a: PSMatrix, compensated: bool) -> torch.Tensor:
+    fn = red.slot_trace if _slot_kernels(a) else red.slot_trace_plain
+    return fn(a.col_ids, a.blocks, a.row_offset, compensated=compensated)
+
+
+def _local_dot(a: PSMatrix, b: PSMatrix, compensated: bool) -> torch.Tensor:
+    fn = red.slot_dot if _slot_kernels(a, b) else red.slot_dot_plain
+    return fn(a.col_ids, a.blocks, b.col_ids, b.blocks,
+              compensated=compensated)
+
+
 @tr.spanned("ntp.reduce", timed=True)
 def trace(a: PSMatrix) -> torch.Tensor:
-    """Matrix trace (0-d tensor on the device; collective)."""
-    return _sum(a, bell.trace(a.col_ids, a.blocks, a.row_offset))
+    """Matrix trace (0-d tensor on the device, float64 where the kernel
+    computes it; collective)."""
+    return _sum(a, _local_trace(a, False))
 
 
 @tr.spanned("ntp.reduce", timed=True)
 def dot(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
-    """sum_ij conj(A_ij) B_ij (0-d tensor on the device; collective)."""
-    return _sum(a, bell.dot(a.col_ids, a.blocks, b.col_ids, b.blocks))
+    """sum_ij conj(A_ij) B_ij (0-d tensor on the device, float64 where
+    the kernel computes it; collective)."""
+    return _sum(a, _local_dot(a, b, False))
 
 
 @tr.spanned("ntp.reduce", timed=True)
@@ -520,15 +552,13 @@ def grand_sum(a: PSMatrix) -> torch.Tensor:
 @tr.spanned("ntp.reduce", timed=True)
 def trace_pair(a: PSMatrix) -> torch.Tensor:
     """Compensated trace -> [2] (hi, lo)."""
-    d = bell.trace_blocks(a.col_ids, a.blocks, a.row_offset)
-    return _sum_pair(a, bell.comp_sum(torch.diagonal(d, dim1=-2, dim2=-1)))
+    return _sum_pair(a, _local_trace(a, True))
 
 
 @tr.spanned("ntp.reduce", timed=True)
 def dot_pair(a: PSMatrix, b: PSMatrix) -> torch.Tensor:
     """Compensated dot -> [2] (hi, lo), resolving the sum to ~n*eps^2."""
-    prod = bell.align_mul(a.col_ids, a.blocks, b.col_ids, b.blocks)
-    return _sum_pair(a, bell.comp_sum(prod))
+    return _sum_pair(a, _local_dot(a, b, True))
 
 
 def pairwise_multiply(a: PSMatrix, b: PSMatrix) -> PSMatrix:

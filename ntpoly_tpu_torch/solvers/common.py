@@ -276,25 +276,26 @@ def _signature(tree) -> tuple:
     return tuple(_signature(t) for t in tree)
 
 
-def chunk_steps(step_fn, params, k_pin: int):
+def chunk_steps(step_fn, params, k_pin: int, last_fn=None):
     """The chunk as device code: ``run(carry, consts, n)`` takes ``n``
-    steps of ``step_fn`` under a collecting capacity policy at the
-    pinned capacity ``k_pin`` ('truncate'; every capacity-bounded op
-    appends its exact structural fill, ``alg.capacity_policy``) ->
-    (carry, the largest fill as a 0-d int32 tensor, the steps' scalars
-    as a float64 tensor [n, scalars]).  Nothing in it reads a device
-    value to the host."""
+    steps of ``step_fn`` (the last of them ``last_fn`` when given)
+    under a collecting capacity policy at the pinned capacity ``k_pin``
+    ('truncate'; every capacity-bounded op appends its exact structural
+    fill, ``alg.capacity_policy``) -> (carry, the largest fill as a 0-d
+    int32 tensor, the steps' scalars as a float64 tensor [n, scalars]).
+    Nothing in it reads a device value to the host."""
     def run(carry, consts, n: int):
         fill = torch.zeros((), dtype=torch.int32,
                            device=_leaves(carry)[0].device)
         rows = []
-        for _ in range(n):
+        for i in range(n):
             coll: list = []
+            fn = last_fn if last_fn is not None and i == n - 1 else step_fn
             with alg.capacity_policy(k_out=k_pin, on_overflow="truncate",
                                      precision=params.precision,
                                      method=params.matmul_method,
                                      collect=coll):
-                carry, scal = step_fn(carry, *consts)
+                carry, scal = fn(carry, *consts)
             for f in coll:
                 fill = torch.maximum(fill, f.to(torch.int32))
             rows.append(torch.stack([v.to(torch.float64).reshape(())
@@ -320,13 +321,14 @@ class _Graph:
     tensors, made before the capture (a later solve with constants of
     the same shapes copies its own in, :meth:`load`).  One step is
     taken uncaptured on a side stream first (the warm-up
-    ``torch.cuda.graphs`` asks for: kernel build, library handles),
-    then the whole chunk is captured.  A capture launches nothing, so
-    every counter of ``utils/trace.py`` bumped while capturing (kernel
-    launches, multiplies, ...) is set back and its increment added on
-    each replay instead.  Each call copies the carry into the static
-    inputs, replays, and returns the graph's own outputs, which the
-    next replay overwrites."""
+    ``torch.cuda.graphs`` asks for: kernel build, library handles; a
+    chunk of one step, so the last step's form where the chunk's last
+    differs), then the whole chunk is captured.  A capture launches
+    nothing, so every counter of ``utils/trace.py`` bumped while
+    capturing (kernel launches, multiplies, ...) is set back and its
+    increment added on each replay instead.  Each call copies the carry
+    into the static inputs, replays, and returns the graph's own
+    outputs, which the next replay overwrites."""
 
     @trace.spanned("ntp.chunk.capture")
     def __init__(self, run, carry, consts, chunk: int, key):
@@ -409,22 +411,25 @@ def captures(device: torch.device, ranks: int) -> bool:
 def run_chunked(step_fn, carry0, consts, params, monitor, ilog, *,
                 k_pin: int, aux_names=("Energy Value",), conv_index=0,
                 conv_mode: str = "diff", cache_key=None,
-                row_transform=None):
+                row_transform=None, last_step=None):
     """Drive ``step_fn`` ``params.iters_per_sync`` iterations per host
     read (reference ``run_chunked``, common.py:263-440).
 
     step_fn(carry, *consts) -> (carry_new, (scalar, ...)): device code
     with no host read, at static shapes (the carry's matrices padded to
     the pinned capacity ``k_pin``; the constants are not padded, every
-    op takes mixed slot counts).  A chunk (:func:`chunk_steps`) runs
-    on the CPU, and on a grid of several ranks, as a plain loop; on a
-    card with a grid of one rank (:func:`captures`) it is captured once
-    per key as one CUDA graph and replayed (:class:`_Graph`), the key
-    being ``cache_key`` (without one, the graph serves this solve only)
-    with ``k_pin``, the chunk's length, the shapes and dtypes of the
-    carry and the constants, the precision and the method.  A failed
-    capture raises; nothing falls back.  The caller's
-    carry is copied into the graph's inputs, never written.
+    op takes mixed slot counts); ``last_step``, of the same form, takes
+    its place as each chunk's last step, and must launch every kernel
+    that ``step_fn`` launches (a capture's warm-up takes it alone).  A
+    chunk (:func:`chunk_steps`) runs on the CPU, and on a grid of
+    several ranks, as a plain loop; on a card with a grid of one rank
+    (:func:`captures`) it is captured once per key as one CUDA graph and
+    replayed (:class:`_Graph`), the key being ``cache_key`` (without
+    one, the graph serves this solve only) with ``k_pin``, the chunk's
+    length, the shapes and dtypes of the carry and the constants, the
+    precision and the method.  A failed capture raises; nothing falls
+    back.  The caller's carry is copied into the graph's inputs, never
+    written.
 
     Once per chunk, one host read takes every step's scalars and the
     chunk's largest structural fill.  A fill of EMPTY (a violated band
@@ -449,7 +454,7 @@ def run_chunked(step_fn, carry0, consts, params, monitor, ilog, *,
     solve = object()            # marks the graphs this solve loaded
 
     def chunk_of(carry):
-        run = chunk_steps(step_fn, params, k_pin)
+        run = chunk_steps(step_fn, params, k_pin, last_step)
         if not captured:
             return run(carry, consts, chunk)
         # without a cache_key, no later solve takes this graph

@@ -30,12 +30,55 @@ the electron count only as far as sigma agrees with the matrices; in
 float32 the plain sums moved it by up to 1.7e-6 per electron on the
 gapped chain at 16,384 rows, and by 4e-8 with the compensated traces.
 Without ``compensated_scalars`` each solver takes the reference's
-scalars exactly.  The chunked steps follow the same rule, and do their
-scalar arithmetic in float64 on the device, as the eager loops do on
-the host (the reference's chunks keep the matrices' dtype there; in
-float64 the two are the same).
+scalars.  On the card those plain traces and dots are already the
+float64 values of the compensated pairs (``parallel/algebra.py``), and
+the solvers' sigma and idempotency read them so; the energy, whose
+successive differences the energy metric holds to converge_diff, is
+the plain dot rounded to the matrices' dtype, as the reference reports
+it: the float32 energies of converged float32 iterates settle to equal
+values, where their float64 values keep moving with the iterates' own
+rounding (at 'highest' on an NVIDIA H100, TRS4 at 102,400 rows then
+took 20 iterations where it took 11, and TRS2 never settled).  So on
+the card the option changes the energy's precision and which
+quantities PM and HPCP sum; everywhere else the plain versions run (the
+CPU, complex data, block sizes the kernels refuse).  The chunked steps
+follow the same rule, and do their scalar arithmetic in float64 on the
+device, as the eager loops do on the host (the reference's chunks keep
+the matrices' dtype there; in float64 the two are the same).
+
+TRS4 runs the multiply that makes the iterate it returns at 'highest',
+departing from the reference.  At the tensor-core tiers ('high', 'bf16',
+'default') a float32 product drops the lo x lo terms of the bfloat16
+split, a bias that adds up over an iterate's diagonal: the 2^20-row
+gapped chain at 'high' ended 0.9 to 1.4 electrons off its 524,288 on an
+NVIDIA H100 (1.7e-6 to 2.7e-6 per electron), against 0.05 at 'highest'.
+Each step sets sigma so that the trace of X^2 (fx + sigma gx) is the
+electron count, from traces of the computed X^2 and X, so only the
+multiply X^2 poly of the last step carries its error into the result;
+that one multiply runs exact (a step whose sigma is clamped makes its
+iterate from X and X^2 and has none).  An eager solve knows its last
+step before that multiply when the idempotency metric decides (from the
+incoming iterate, ``Monitor.would_converge``) or at ``max_iterations``;
+a chunked solve returns the iterate at a chunk's end, so each chunk's
+last step runs exact.  With the energy metric an eager solve cannot
+know its last step beforehand and keeps the tier throughout.
+
+TRS4's sigma, (nel - tr fx) / tr gx, is undetermined once tr gx =
+tr X^2 - 2 dot(X^2, X) + dot(X^2, X^2) falls below the rounding of its
+three terms held in the matrices' dtype (half an ulp each, about 2 eps
+tr X^2 near convergence; floored at the reference's 1e-14): the step
+then takes the mid sigma, as the reference's does when its float32
+sums of a converged float32 iterate cancel to zero.  The float64 sums
+of the card resolve tr gx below that, and a converged float32 iterate
+would go on resetting its trace by its own rounding, its float32 energy
+never settling: at 'highest' the energy metric took 20 iterations at
+102,400 rows on an NVIDIA H100 where it took 11 (10 with the guard); at
+'high' tr gx stayed above 14 eps tr X^2 to the last step at 102,400
+and 2^20 rows, where the guard does not reach.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -72,10 +115,11 @@ def _metric(params) -> str:
 
 def _step_energy(x_new, whc, compensated) -> float:
     """Energy of a purification step as a float64: the compensated
-    (hi, lo) pair when asked for, else the plain dot."""
+    (hi, lo) pair when asked for, else the plain dot in the matrices'
+    dtype (see the module's docstring)."""
     if compensated:
         return alg.host_pair(alg.dot_pair(x_new, whc))
-    return real_scalar(alg.dot(x_new, whc))
+    return real_scalar(alg.dot(x_new, whc).to(x_new.dtype))
 
 
 @trace.spanned("ntp.mu")
@@ -119,6 +163,18 @@ def _epilogue(x, isq, isqt, params):
 # the chunked steps (reference density.py:31-82,249-430)
 # ----------------------------------------------------------------------------
 
+def _gx_floor(d1, d2, t2, dtype):
+    """The trace of gx, t2 - 2 d1 + d2, below which TRS4's sigma is
+    undetermined and takes the mid value: the rounding of its three
+    terms held in the matrices' dtype (half an ulp each), at least the
+    reference's 1e-14 (see the module's docstring)."""
+    res = 0.5 * torch.finfo(dtype).eps * (abs(t2) + 2.0 * abs(d1)
+                                          + abs(d2))
+    if isinstance(res, torch.Tensor):
+        return res.clamp(min=1e-14)
+    return max(1e-14, res)
+
+
 def _trs4_scalars(a, b):
     """[dot(A, B), dot(A, A), trace(A), trace(B)] as one float64 device
     tensor: TRS4's sigma terms and the idempotency residual of the
@@ -145,11 +201,11 @@ def _chunk_conv(params):
 def _chunk_energy(x_new, whc, compensated):
     """The energy of a chunked step as device scalars: (hi, lo) of the
     compensated dot when asked for (combined in float64 after the
-    chunk's read), else (dot,)."""
+    chunk's read), else (dot,) in the matrices' dtype."""
     if compensated:
         pair = alg.dot_pair(x_new, whc)
         return (pair[0], pair[1])
-    return (alg.dot(x_new, whc),)
+    return (alg.dot(x_new, whc).to(x_new.dtype),)
 
 
 def _chunk_traces(compensated, *mats):
@@ -162,15 +218,16 @@ def _chunk_traces(compensated, *mats):
 
 
 def _chunked(name, step, x, wh, imat, trace, params, monitor, ilog,
-             *key):
+             *key, last_step=None):
     """Run a purification step chunked from X (``run_chunked``), with
-    WH and the identity as constants."""
+    WH and the identity as constants; ``last_step`` in place of
+    ``step`` as a chunk's last."""
     k_pin, (x, whp, imatp) = pin_capacity(params, x, wh, imat)
     conv_index, conv_mode, row_transform = _chunk_conv(params)
     return run_chunked(step, x, (whp, imatp), params, monitor, ilog,
                        k_pin=k_pin, aux_names=("Energy Value",),
                        conv_index=conv_index, conv_mode=conv_mode,
-                       row_transform=row_transform,
+                       row_transform=row_transform, last_step=last_step,
                        cache_key=(name, params.threshold, float(trace),
                                   params.compensated_scalars) + key)
 
@@ -263,22 +320,25 @@ def _trs4_chunked(x, wh, imat, trace, params, monitor, ilog,
     X^2 poly one multiply, and the sigma clamps are the coefficients
     of the merge that makes the new iterate: (2, -1, 0) on X, X^2 and
     X^2 poly above sigma_max, (0, 1, 0) below sigma_min, (0, 0, 1)
-    between."""
+    between.  A chunk's last step (``last``) takes X^2 poly at
+    'highest' (see the module's docstring)."""
     thr = params.threshold
     comp = params.compensated_scalars
 
-    def step(xc, whc, imatc):
+    def step(xc, whc, imatc, last=False):
         x2 = alg.matmul(xc, xc, threshold=thr)
         d1, d2, t2, tx = _trs4_scalars(x2, xc)
         trace_fx = 4.0 * d1 - 3.0 * d2
         trace_gx = t2 - 2.0 * d1 + d2
-        sigma = torch.where(trace_gx.abs() < 1e-14,
+        sigma = torch.where(trace_gx.abs() < _gx_floor(d1, d2, t2,
+                                                       xc.dtype),
                             0.5 * (sigma_max - sigma_min),
                             (trace - trace_fx) / trace_gx)
         poly = alg.increment_n((x2, xc, imatc),
                                (sigma - 3.0, 4.0 - 2.0 * sigma, sigma),
                                threshold=thr)
-        x_mid = alg.matmul(x2, poly, threshold=thr)
+        x_mid = alg.matmul(x2, poly, threshold=thr,
+                           precision="highest" if last else None)
         del poly
         hi = sigma > sigma_max
         lo = sigma < sigma_min
@@ -293,7 +353,8 @@ def _trs4_chunked(x, wh, imat, trace, params, monitor, ilog,
         return x_new, _chunk_energy(x_new, whc, comp) + (sigma, idem)
 
     return _chunked("trs4", step, x, wh, imat, trace, params, monitor,
-                    ilog, sigma_min, sigma_max)
+                    ilog, sigma_min, sigma_max,
+                    last_step=functools.partial(step, last=True))
 
 
 def pm(h, isq, trace, params: SolverParameters | None = None):
@@ -458,11 +519,11 @@ def trs4(h, isq, trace, params: SolverParameters | None = None):
                     # materialized: their traces reduce to dot(X^2, X),
                     # dot(X^2, X^2) and trace(X^2)
                     x2 = alg.matmul(x, x, threshold=thr)
-                    d1, d2, t2, tx = _scalars(alg.dot(x2, x), alg.dot(x2, x2),
-                                              alg.trace(x2), alg.trace(x))
+                    d1, d2, t2, tx = _scalars(*_trs4_scalars(x2, x))
                     trace_fx = 4.0 * d1 - 3.0 * d2
                     trace_gx = t2 - 2.0 * d1 + d2
-                    if abs(trace_gx) < 1e-14:
+                    idem = abs(tx - t2) / trace
+                    if abs(trace_gx) < _gx_floor(d1, d2, t2, x.dtype):
                         sigma = 0.5 * (sigma_max - sigma_min)
                     else:
                         sigma = (trace - trace_fx) / trace_gx
@@ -479,14 +540,21 @@ def trs4(h, isq, trace, params: SolverParameters | None = None):
                             (sigma - 3.0, 4.0 - 2.0 * sigma, sigma),
                             threshold=thr)
                         del x
-                        x = alg.matmul(x2, poly, threshold=thr)
+                        # the step that makes the returned iterate
+                        # multiplies exact (see the module's docstring)
+                        last = (ii == params.max_iterations - 1
+                                or (metric == "idempotency"
+                                    and monitor.would_converge(idem)))
+                        x = alg.matmul(x2, poly, threshold=thr,
+                                       precision="highest" if last
+                                       else None)
                         del poly
                     del x2
                     energy_old = energy
                     energy = _step_energy(x, wh, params.compensated_scalars)
                     total = ii
                     if metric == "idempotency":
-                        monitor.append(abs(tx - t2) / trace)
+                        monitor.append(idem)
                     else:
                         monitor.append(energy - energy_old)
                     ilog.step(**{"Energy Value": energy})

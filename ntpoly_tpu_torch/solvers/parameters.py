@@ -13,7 +13,7 @@ package is said beside it:
   * ``iters_per_sync`` the chunked driver
     (``solvers/common.run_chunked``);
   * ``compensated_scalars`` the two-float reductions
-    (``core/bell.comp_sum``, ``solvers/density``);
+    (``ops/reduce``, ``solvers/density``);
   * ``row_chunk`` is accepted for parity with the reference and
     ignored: the reference chunks the rows of its TPU kernels to fit
     their scalar memory, and the CUDA kernels have no such limit.
@@ -25,6 +25,7 @@ must match exactly for iteration-count parity with the reference).
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -67,6 +68,13 @@ class Monitor:
         self.win_short = self.win_short[1:] + [float(value)]
         self.win_long = self.win_long[1:] + [float(value)]
         self.nval += 1
+
+    def would_converge(self, value: float) -> bool:
+        """Whether appending ``value`` would make :meth:`check_converged`
+        fire; the monitor is left as it is."""
+        probe = copy.copy(self)
+        probe.append(value)
+        return probe.check_converged()
 
     def check_converged(self, be_verbose: bool = False) -> bool:
         last = self.win_short[-1]
@@ -183,12 +191,16 @@ class SolverParameters:
     # 'idempotency' otherwise.
     convergence_metric: str = "auto"
     # Compensated (two-float) scalar reductions for the monitor scalars
-    # and the reported energy (core/bell.comp_sum): float32 sums
+    # and the reported energy (ops/reduce.py): float32 sums
     # quantize a large energy at a coarse absolute step, so a
     # converge_diff below it cannot be certified at the 2^20-row scale
     # without them.  The products stay float32; only the traces and dots
     # feeding sigma, the monitor and the energy pay the extra passes
     # (solvers/density.py says which scalars each solver compensates).
+    # On the card the kernels' plain traces and dots already are the
+    # pairs' float64 values, so there it changes the reported energy
+    # (else rounded to the matrices' dtype) and PM's and HPCP's choice
+    # of traces.
     compensated_scalars: bool = False
     # SpGEMM method override (None = parallel/algebra.matmul's own
     # choice).  The names are the JAX package's.  'pallas' runs the

@@ -46,8 +46,10 @@ reductions).
 
 **Counters.**  One registry of named groups of integer counters,
 always on: ``ops.spgemm.launches`` (group ``launches``: kernel launches
-per wrapper), ``parallel.algebra.multiplies`` (group ``multiplies``:
-``matmul`` calls) and :data:`counts` (group ``program``: ``host_reads``,
+per wrapper), ``ops.reduce.reductions`` (group ``reductions``: the slot
+reductions' kernel launches per wrapper), ``parallel.algebra.multiplies``
+(group ``multiplies``: ``matmul`` calls) and :data:`counts` (group
+``program``: ``host_reads``,
 ``matmul.regrows``, ``chunk.redos``, ``graph.captures``,
 ``graph.replays``, ``solver.iterations``).  :func:`snapshot`,
 :func:`restore`, :func:`since` and :func:`add` let a CUDA graph set

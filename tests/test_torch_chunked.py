@@ -415,8 +415,8 @@ def test_no_host_read_inside_a_chunk(monkeypatch):
     selects = []
     select = sp._select
 
-    def guarded(step_fn, params, k_pin):
-        run = steps(step_fn, params, k_pin)
+    def guarded(step_fn, params, k_pin, *rest):
+        run = steps(step_fn, params, k_pin, *rest)
 
         def call(*args):
             with _NoHostRead():

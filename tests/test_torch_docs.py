@@ -170,6 +170,8 @@ def test_kernels_page(generated):
     for name in ("spgemm_band", "spgemm_general", "spgemm_stream",
                  "spgemm_window", "spgemm_uniform", "split_bf16"):
         assert f"### `ops.spgemm.{name}(" in page
+    for name in ("slot_dot", "slot_trace"):
+        assert f"### `ops.reduce.{name}(" in page
     assert "| `'high'` | `'high'` | `'highest'` |" in page
 
 

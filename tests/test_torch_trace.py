@@ -248,8 +248,8 @@ class _Graphs:
         outer = self
         real_steps = common.chunk_steps
 
-        def chunk_steps(step_fn, params, k_pin):
-            run = real_steps(step_fn, params, k_pin)
+        def chunk_steps(step_fn, params, k_pin, *rest):
+            run = real_steps(step_fn, params, k_pin, *rest)
 
             def recorded(carry, consts, n):
                 out = run(carry, consts, n)
