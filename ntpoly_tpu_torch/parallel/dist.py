@@ -17,7 +17,13 @@ process (rank) per device, SPMD, as MPI does:
     and calls no backend, so the 1 x 1 x 1 grid runs the same code as
     every other grid.  Under ``gloo`` a CUDA tensor is staged through
     host memory, decided by the backend (``staged`` lists each
-    collective that was), never on a failure.
+    collective that was), never on a failure.  Each backend call of a
+    group of several ranks runs inside a timed ``ntp.collective`` span
+    (``utils/trace.py``) and is counted in the counter group
+    ``collectives``: ``calls``, and ``bytes_in``, the bytes that arrive
+    from the other members (its own part left out; host-staged gloo
+    traffic included; an all-reduce counts every other member's
+    operand).
   * :func:`allgather_triplets` and :func:`exchange_triplets`: the union
     of every rank's triplets, and the owner-routed exchange of the
     reference fill (counts first, then one ``all_to_all_single`` each
@@ -28,11 +34,14 @@ process (rank) per device, SPMD, as MPI does:
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import numpy as np
 import torch
 import torch.distributed as tdist
+
+from ..utils import trace as tr
 
 __all__ = ["initialize", "shutdown", "process_count", "process_index",
            "allgather_triplets", "exchange_triplets", "Group", "group",
@@ -42,6 +51,14 @@ __all__ = ["initialize", "shutdown", "process_count", "process_index",
 staged: set = set()
 # the backend of a world whose ranks each have a card
 PAIR = "cpu:gloo,cuda:nccl"
+# backend calls of groups of several ranks, and the bytes they brought
+counts = tr.counter_group("collectives", ("calls", "bytes_in"))
+SPAN = "ntp.collective"
+
+
+def _called(bytes_in: int) -> None:
+    counts["calls"] += 1
+    counts["bytes_in"] += int(bytes_in)
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -121,10 +138,12 @@ class Group:
         if self.size == 1:
             return [x]
         stage = self._stage("all_gather", x)
-        src = x.contiguous().cpu() if stage else x.contiguous()
-        out = [torch.empty_like(src) for _ in range(self.size)]
-        tdist.all_gather(out, src, group=self.pg)
-        return [o.to(x.device) for o in out] if stage else out
+        with tr.span(SPAN, timed=True):
+            src = x.contiguous().cpu() if stage else x.contiguous()
+            out = [torch.empty_like(src) for _ in range(self.size)]
+            tdist.all_gather(out, src, group=self.pg)
+            _called((self.size - 1) * src.nbytes)
+            return [o.to(x.device) for o in out] if stage else out
 
     def all_gather_v(self, x: torch.Tensor) -> list:
         """Every member's ``x``, whose leading lengths may differ."""
@@ -142,9 +161,11 @@ class Group:
         if self.size == 1:
             return x
         stage = self._stage("all_reduce_max", x)
-        y = x.detach().clone().cpu() if stage else x.detach().clone()
-        tdist.all_reduce(y, op=tdist.ReduceOp.MAX, group=self.pg)
-        return y.to(x.device) if stage else y
+        with tr.span(SPAN, timed=True):
+            y = x.detach().clone().cpu() if stage else x.detach().clone()
+            tdist.all_reduce(y, op=tdist.ReduceOp.MAX, group=self.pg)
+            _called((self.size - 1) * y.nbytes)
+            return y.to(x.device) if stage else y
 
     def sum_ordered(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the members, added in rank order from the
@@ -163,20 +184,27 @@ class Group:
         stage = self._stage("all_to_all", x)
         # the counts travel on the payload's side of the backend
         cdev = "cpu" if stage else x.device
-        cnt = torch.tensor(counts, dtype=torch.int64, device=cdev)
-        got = torch.empty_like(cnt)
-        tdist.all_to_all_single(got, cnt, group=self.pg)
+        with tr.span(SPAN, timed=True):
+            cnt = torch.tensor(counts, dtype=torch.int64, device=cdev)
+            got = torch.empty_like(cnt)
+            tdist.all_to_all_single(got, cnt, group=self.pg)
+            _called((self.size - 1) * cnt.element_size())
         recv = [int(c) for c in got.tolist()]
-        src = x.contiguous().cpu() if stage else x.contiguous()
-        out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
-        tdist.all_to_all_single(out, src, output_split_sizes=recv,
-                                input_split_sizes=list(counts),
-                                group=self.pg)
-        return out.to(x.device) if stage else out
+        with tr.span(SPAN, timed=True):
+            src = x.contiguous().cpu() if stage else x.contiguous()
+            out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+            tdist.all_to_all_single(out, src, output_split_sizes=recv,
+                                    input_split_sizes=list(counts),
+                                    group=self.pg)
+            row = math.prod(out.shape[1:]) * out.element_size()
+            _called((sum(recv) - recv[self.index]) * row)
+            return out.to(x.device) if stage else out
 
     def barrier(self) -> None:
         if self.size > 1:
-            tdist.barrier(group=self.pg)
+            with tr.span(SPAN, timed=True):
+                tdist.barrier(group=self.pg)
+                _called(0)
 
 
 def group(ranks) -> Group:

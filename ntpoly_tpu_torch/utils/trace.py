@@ -18,7 +18,8 @@ turns it on the way they already profile.  Then each span
     the span's start and end: the device's work inside the span and
     any idle stretch while the host was still launching it.  Only the
     spans whose stream time is read are timed (``ntp.matmul``,
-    ``ntp.compact``, ``ntp.increment``, ``ntp.reduce``); an event pair
+    ``ntp.compact``, ``ntp.increment``, ``ntp.reduce``,
+    ``ntp.collective``); an event pair
     costs host time that shows as idle where the device waits.
 
 With the profiler off, a span is a flag check that returns a shared
@@ -41,14 +42,19 @@ Spans of the program (``ntpoly_tpu_torch``), by name: ``ntp.solve``
 ``ntp.chunk.replay`` (its CUDA graph), ``ntp.host_read`` (:func:`read`),
 ``ntp.matmul``, ``ntp.structure`` (the SpGEMM's structure pass),
 ``ntp.compact`` (the full-span band product's compact, the slices'
-merge), ``ntp.increment`` and ``ntp.reduce`` (the algebra's scalar
-reductions).
+merge), ``ntp.increment``, ``ntp.reduce`` (the algebra's scalar
+reductions) and ``ntp.collective`` (one backend call of a process group
+of several ranks, ``parallel/dist.Group``: the wait for the slowest
+member included).
 
 **Counters.**  One registry of named groups of integer counters,
 always on: ``ops.spgemm.launches`` (group ``launches``: kernel launches
 per wrapper), ``ops.reduce.reductions`` (group ``reductions``: the slot
 reductions' kernel launches per wrapper), ``parallel.algebra.multiplies``
-(group ``multiplies``: ``matmul`` calls) and :data:`counts` (group
+(group ``multiplies``: ``matmul`` calls), ``parallel.dist.counts``
+(group ``collectives``: ``calls``, the backend calls of groups of
+several ranks, and ``bytes_in``, the bytes they brought from the other
+members) and :data:`counts` (group
 ``program``: ``host_reads``,
 ``matmul.regrows``, ``chunk.redos``, ``graph.captures``,
 ``graph.replays``, ``solver.iterations``).  :func:`snapshot`,
