@@ -43,7 +43,11 @@ Phases, one line each with its seconds:
    within 1e3 eps^2 of the sum of magnitudes of its plain version's
    compensated pair (a bound that a skipped block row, and in the dots
    a float32 sum, are shown to miss), the same bits twice, and timed
-   beside its byte bound and its plain version.
+   beside its byte bound and its plain version; then the compact
+   kernels (csrc/compact.cu) on X @ X at its full span 9, to k_out 5,
+   bit for bit ``bell.compact`` but for near-tie rows, timed in a CUDA
+   graph with the L2 flushed before each call, beside its byte bound
+   and ``bell.compact``.
 5. lowk: the low-K profile (ntpoly_tpu_torch/profiling/lowk.py) at
    full size, 2^19 rows of the chain at bs 128, every arm timed, and
    torch.bmm in float32 over the same number of dense block products
@@ -72,7 +76,13 @@ Phases, one line each with its seconds:
    the band kernel at 'high' (the reference's setting: the split pass
    and the tensor cores), with its certificates (idempotency,
    commutator, electron count) computed at 'highest'; then the same
-   solve at 'highest' for the speed and accuracy trade.
+   solve at 'highest' for the speed and accuracy trade; then the 'high'
+   solve once more with each of its compacts held bit for bit against
+   ``bell.compact`` on the same card tensors (a row may differ only
+   where its competing norms lie within float32 rounding; such rows
+   are counted and printed, and the largest block difference is the
+   `kernels` line's max_abs_err; its launches are the timed 'high'
+   solve's).
 9. overlap: the non-orthogonal path (profiling/overlap.py) at the
    flagship's width: the inverse square root of the overlap S of
    `systems.overlap_fn` (Taylor order 5, 'highest'; max|ISQ S ISQ^T -
@@ -278,6 +288,7 @@ import torch
 import ntpoly_tpu_torch as nt
 from ntpoly_tpu_torch.config import EMPTY
 from ntpoly_tpu_torch.core import bell
+from ntpoly_tpu_torch.ops import compact as cmp
 from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
@@ -289,6 +300,7 @@ from ntpoly_tpu_torch.profiling.trs4_tiers import (flagship_params,
                                                    purity_invariants, solve)
 from ntpoly_tpu_torch.solvers import common, density
 from ntpoly_tpu_torch.systems import gapped_fn
+from ntpoly_tpu_torch.utils.trace import reset_counters
 
 KERNELS = {
     "spgemm_band": dict(source="ntpoly_tpu_torch/csrc/spgemm_band.cu",
@@ -849,6 +861,7 @@ def phase_timing(errs, times):
         raise AssertionError("the band kernel's 'high' is not twice as "
                              "fast as its 'highest'")
     reduction_timing(ac, ab)
+    compact_timing(ac, ab, times)
 
 
 def reduction_timing(xc, xb) -> None:
@@ -948,6 +961,136 @@ def reduction_timing(xc, xb) -> None:
               f"ms, bound {bound:.3f} ms (bytes, {100 * bound / rms:.0f}% "
               f"reached replayed), {nbytes / 1e9:.3f} GB, gap {gap:.2e} "
               f"(tolerance {tol:.2e}; {caught}), same bits twice")
+
+
+# the compact kernel's entry in the `kernels` line
+# (launches: the timed 'high' flagship solve's; max_abs_err: the largest
+# block difference from bell.compact over compact_timing and compact_held)
+COMPACT = dict(name="slot_compact", route="cuda",
+               source="ntpoly_tpu_torch/csrc/compact.cu",
+               replaces="none: the reference's compact is plain jnp, "
+                        "ntpoly_tpu/core/bell.py:76",
+               max_abs_err=0.0)
+
+
+def compact_err(got, want, rows) -> float:
+    """The largest |difference| of two compacts' blocks over ``rows`` (0.0
+    where no row differs); a NaN in one only is infinite."""
+    if not len(rows):
+        return 0.0
+    d = (got[1][rows].double() - want[1][rows].double()).abs()
+    return float(torch.nan_to_num(d, nan=math.inf).max())
+
+
+def flushed_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn`` replayed in a CUDA graph
+    with the L2 flushed before each call (a 256 MiB write): the graph of
+    ``reps`` x (flush, fn) less the graph of ``reps`` flushes."""
+    scrub = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def flush():
+        scrub.fill_(1)
+
+    both = replayed_ms(lambda: (flush(), fn()), reps)
+    return both - replayed_ms(flush, reps)
+
+
+def compact_timing(xc, xb, times) -> None:
+    """The compact kernels (``ops/compact.py``) at the flagship shape:
+    X @ X through the band kernel at 'high' and its full span 9 (8192
+    rows, bs 128, f32; the input ``_summa`` gives it), compacted to
+    k_out 5, bit for bit ``bell.compact`` but for near-tie rows, the same
+    bits twice, then timed in a CUDA graph with the L2 flushed before
+    each call, beside ``bell.compact`` and the byte bounds over 3.35
+    TB/s: the design's (the candidates read once, the kept blocks read
+    again and written once, the norms written and read) and one pass's
+    (the kept blocks never read again)."""
+    cc, cb, _ = sp.spgemm(xc, xb, xc, xb, k_out=9, threshold=1e-7,
+                          alpha=1.0, precision="high", band_mode="force")
+    assert cmp.kernel_takes(cc, cb, 5)
+    before = cmp.compactions["slot_compact"]
+    got = cmp.slot_compact(cc, cb, 5)
+    again = cmp.slot_compact(cc, cb, 5)
+    want = bell.compact(cc, cb, 5)
+    launches = cmp.compactions["slot_compact"] - before
+    bad = cmp.rows_differ(got, want)
+    ties = cmp.near_ties(cc, cb, 5)
+    err = compact_err(got, want, bad)
+    COMPACT["max_abs_err"] = max(COMPACT["max_abs_err"], err)
+    twice = torch.equal(got[0], again[0]) and not len(
+        cmp.rows_differ(got, again))
+    print(f"  slot_compact X @ X {list(cb.shape)} -> k_out 5: {len(bad)} "
+          f"rows differ from bell.compact ({len(ties)} near-tie rows, "
+          f"largest block difference {err!r}), same bits twice {twice}, "
+          f"{launches} calls")
+    if launches != 2 or not twice or not set(bad.tolist()) <= set(
+            ties.tolist()):
+        raise AssertionError("the compact kernel is not bell.compact at "
+                             "the flagship shape")
+    del got, again, want
+    rows, m = cc.shape
+    kept = rows * 5 * 128 * 128 * 4
+    one_pass = (cb.numel() * cb.element_size() + 4 * cc.numel() + kept
+                + 4 * rows * 5)
+    nbytes = one_pass + kept + 2 * 8 * rows * m
+    ms = flushed_ms(lambda: cmp.slot_compact(cc, cb, 5), 5)
+    eager = lowk.cuda_time(lambda: cmp.slot_compact(cc, cb, 5), 10)
+    pms = lowk.cuda_time(lambda: bell.compact(cc, cb, 5), 3)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    lower = one_pass / HBM_BYTES_PER_S * 1e3
+    times["slot_compact"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                 bound_by="bytes", one_pass_bound_ms=lower)
+    print(f"  slot_compact 8192 x 9 -> 5 slots bs 128 f32: kernels {ms:.3f} "
+          f"ms (graph, L2 flushed; eager {eager:.3f} ms), plain "
+          f"{pms:.3f} ms, bound {bound:.3f} ms (bytes, {nbytes / 1e9:.3f} "
+          f"GB, {100 * bound / ms:.0f}% reached; {lower:.3f} ms in one "
+          f"pass that never reads a kept block again)")
+
+
+def compact_held(h, isq, nel) -> dict:
+    """The flagship 'high' solve once more with each compact held: the
+    kernel's output against ``bell.compact`` on the same card tensors,
+    bit for bit but for rows whose competing norms lie within float32
+    rounding.  -> {products, kernel launches, rows differing, near-tie
+    rows}."""
+    real = cmp.slot_compact
+    seen = dict(products=0, launches=0, rows_differ=0, near_tie_rows=0)
+
+    def held(cols, blocks, k_out, threshold=0.0):
+        before = cmp.compactions["slot_compact"]
+        got = real(cols, blocks, k_out, threshold)
+        seen["launches"] += cmp.compactions["slot_compact"] - before
+        want = bell.compact(cols, blocks, k_out, threshold)
+        rows = cmp.rows_differ(got, want)
+        COMPACT["max_abs_err"] = max(COMPACT["max_abs_err"],
+                                     compact_err(got, want, rows))
+        bad = set(rows.tolist())
+        ties = set(cmp.near_ties(cols, blocks, k_out).tolist())
+        if not bad <= ties:
+            raise AssertionError(
+                f"compact {seen['products']} of the flagship solve: rows "
+                f"{sorted(bad - ties)[:8]} differ from bell.compact and are "
+                f"no near ties")
+        if bad:
+            print(f"  compact {seen['products']}: near-tie rows that "
+                  f"differ {sorted(bad)}")
+        seen["products"] += 1
+        seen["rows_differ"] += len(bad)
+        seen["near_tie_rows"] += len(ties)
+        return got
+
+    params = flagship_params(trs4_tiers.CONFIGS["flagship"]["k_out"],
+                             "pallas_band", "high")
+    cmp.slot_compact = held
+    try:
+        solve(h, isq, nel, params)
+    finally:
+        cmp.slot_compact = real
+    print("  'high' solve with every compact held: " + json.dumps(seen))
+    if not seen["products"] or seen["launches"] != seen["products"]:
+        raise AssertionError("the flagship solve's compacts did not all "
+                             "launch the kernel")
+    return seen
 
 
 def replayed_ms(fn, reps: int) -> float:
@@ -1367,10 +1510,13 @@ def phase_flagship():
         density.trs4(h, isq, nel, warm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_counters("compactions")
         t0 = time.perf_counter()
         rho, energy, mu, n, counts = solve(h, isq, nel, params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if precision == "high":
+            COMPACT["launches"] = cmp.compactions["slot_compact"]
         peak = torch.cuda.max_memory_allocated()
         print(f"  '{precision}': {n} iterations, {wall:.3f} s wall, "
               f"{wall / n:.4f} s per iteration, energy {energy!r}, mu "
@@ -1398,6 +1544,7 @@ def phase_flagship():
                              "the split pass")
     print(f"  'high' against 'highest': {result['high'][0]:.3f} s against "
           f"{result['highest'][0]:.3f} s")
+    compact_held(h, isq, nel)
     return result["high"][1]
 
 
@@ -2585,6 +2732,8 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in pred:
             entry["launches_predicated"] = pred[entry["name"]]
+    # the compact kernels: their calls in the timed 'high' flagship solve
+    kernels.append(dict(COMPACT, **times["slot_compact"], library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     _result()

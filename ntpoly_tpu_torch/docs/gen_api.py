@@ -22,8 +22,9 @@ Two departures from the JAX package's generator:
     ``csrc/`` is, from what the package itself says: the TPU kernel the
     source replaces (or that it replaces none), from the source's own
     header comment; the Python wrapper that launches it and the plain
-    PyTorch version beside it in ``ops/spgemm.py`` or ``ops/reduce.py``,
-    with their docstrings; and the table of ``ops.spgemm.kernel_tier``.
+    PyTorch version beside it in ``ops/spgemm.py``, ``ops/reduce.py`` or
+    ``ops/compact.py``, with their docstrings; and the table of
+    ``ops.spgemm.kernel_tier``.
     It quotes no times.
 
 The package imports ``torch`` and never ``jax``, so the generator runs
@@ -211,6 +212,7 @@ def render_kernels() -> str:
     """The eighth page: each CUDA source, what it replaces, its wrappers
     and plain versions, and the tier table."""
     import torch
+    from ntpoly_tpu_torch.ops import compact as cmp
     from ntpoly_tpu_torch.ops import reduce as red
     from ntpoly_tpu_torch.ops import spgemm as sp
     csrc = PACKAGE / "csrc"
@@ -219,12 +221,13 @@ def render_kernels() -> str:
            "`pl.pallas_call` has a hand-written counterpart for NVIDIA "
            "Hopper (`sm_90a`) in `ntpoly_tpu_torch/csrc/`, built by "
            "`ntpoly_tpu_torch.ops._cuda` with `nvcc` at first use (never "
-           "at import); so do the slot reductions, which the JAX package "
-           "leaves to XLA.  Each is launched by a wrapper in "
-           "`ntpoly_tpu_torch.ops.spgemm` or `ntpoly_tpu_torch.ops.reduce`, "
-           "which launches it for CUDA tensors and runs its plain PyTorch "
-           "version for CPU tensors; each launch adds one to "
-           "`ops.spgemm.launches` or `ops.reduce.reductions` under the "
+           "at import); so do the slot reductions and the compact, which "
+           "the JAX package leaves to XLA.  Each is launched by a wrapper "
+           "in `ntpoly_tpu_torch.ops.spgemm`, `ntpoly_tpu_torch.ops.reduce` "
+           "or `ntpoly_tpu_torch.ops.compact`, which launches it for CUDA "
+           "tensors and runs its plain PyTorch version for CPU tensors; "
+           "each launch adds one to `ops.spgemm.launches`, "
+           "`ops.reduce.reductions` or `ops.compact.compactions` under the "
            "wrapper's name.  Rendered from the sources' header comments "
            "and the wrappers' docstrings.\n"]
     for path in sorted(csrc.glob("*.cu")):
@@ -241,7 +244,7 @@ def render_kernels() -> str:
                        + "\n")
         out.extend(p + "\n" for p in paras[1:]
                    if "Replaces" in p or _REPLACES_NONE in p)
-        pairs = [(mod, *pair) for mod in (sp, red)
+        pairs = [(mod, *pair) for mod in (sp, red, cmp)
                  for pair in _wrappers(mod, path.name)]
         if not pairs:
             raise MissingNameError(f"no wrapper launches {path.name}")
@@ -249,7 +252,8 @@ def render_kernels() -> str:
             where = mod.__name__.removeprefix("ntpoly_tpu_torch.")
             out.append(f"### `{where}.{name}{_sig(fn)}`\n")
             out.append(_doc(fn) + "\n")
-            out.append(f"Plain version: `{where}.{plain.__name__}"
+            home = plain.__module__.removeprefix("ntpoly_tpu_torch.")
+            out.append(f"Plain version: `{home}.{plain.__name__}"
                        f"{_sig(plain)}`\n")
             out.append(_doc(plain) + "\n")
     for path in sorted(csrc.glob("*.cuh")):
@@ -270,6 +274,8 @@ def render_kernels() -> str:
                + ", ".join(f"`{k}`" for k in sp.launches) + ".\n")
     out.append("Reduction counters (`ops.reduce.reductions`): "
                + ", ".join(f"`{k}`" for k in red.reductions) + ".\n")
+    out.append("Compaction counters (`ops.compact.compactions`): "
+               + ", ".join(f"`{k}`" for k in cmp.compactions) + ".\n")
     return "\n".join(out)
 
 

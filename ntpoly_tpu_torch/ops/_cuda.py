@@ -48,6 +48,8 @@ _SIGNATURES = {
                               ("",)),
     "ntp_slot_dot": ((_P,) * 6 + (_L,) * 4 + (_I,) * 6 + (_P,), _REAL),
     "ntp_slot_trace": ((_P,) * 4 + (_L,) * 2 + (_I,) * 7 + (_P,), _REAL),
+    "ntp_slot_compact": ((_P,) * 7 + (_L,) * 2 + (_I,) * 4 + (_D, _P),
+                         _REAL),
 }
 
 _lib = None

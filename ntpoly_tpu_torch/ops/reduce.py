@@ -25,13 +25,12 @@ dtype, and ``comp_sum`` of ``align_mul`` or of the diagonal).
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
 from ..core import bell
 from ..utils import trace
-from .spgemm import eligible
+from .spgemm import eligible, slot_rows
 
 Tensor = torch.Tensor
 
@@ -57,22 +56,6 @@ def _max_grid(device: torch.device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return CTAS_PER_SM * _sms(index)
-
-
-def _rows(cols: Tensor, blocks: Tensor, dt: torch.dtype):
-    """[..., R, K] slots as [rows, K] col ids and [rows, K, bs, bs] blocks
-    of ``dt`` whose rows may lie any stride apart (a capacity trim's
-    view): copied only where a row's slots or a block are not dense."""
-    k, bs = cols.shape[-1], blocks.shape[-1]
-    rows = math.prod(cols.shape[:-1])
-    c = cols.reshape(rows, k)
-    b = blocks.reshape(rows, k, bs, bs).to(dt)
-    if k > 1 and c.stride(1) != 1:
-        c = c.contiguous()
-    if (b.stride(3) != 1 or b.stride(2) != bs
-            or (k > 1 and b.stride(1) != bs * bs)):
-        b = b.contiguous()
-    return c, b
 
 
 def _checked(what: str, cols: Tensor, blocks: Tensor, dt) -> None:
@@ -131,8 +114,8 @@ def slot_dot(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
         raise ValueError(f"slot_dot: A {tuple(a_blocks.shape)} and B "
                          f"{tuple(b_blocks.shape)} differ in rows, block "
                          f"size or device")
-    ac, ab = _rows(a_cols, a_blocks, dt)
-    bc, bb = _rows(b_cols, b_blocks, dt)
+    ac, ab = slot_rows(a_cols, a_blocks, dt)
+    bc, bb = slot_rows(b_cols, b_blocks, dt)
     rows, bs = ac.shape[0], ab.shape[-1]
     dev = ab.device
     if rows == 0:
@@ -174,7 +157,7 @@ def slot_trace(cols: Tensor, blocks: Tensor, row_offset: int = 0, *,
     dt = blocks.dtype
     _checked("slot_trace", cols, blocks, dt)
     period = cols.shape[-2]
-    c, b = _rows(cols, blocks, dt)
+    c, b = slot_rows(cols, blocks, dt)
     rows, bs = c.shape[0], b.shape[-1]
     dev = b.device
     if rows == 0:

@@ -55,6 +55,7 @@ block fell below the threshold.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Tuple
 
@@ -247,6 +248,23 @@ def eligible(dtype, bs: int) -> bool:
     size that is a multiple of 8 up to 128."""
     return (dtype in (torch.float32, torch.float64) and bs % 8 == 0
             and 0 < bs <= 128)
+
+
+def slot_rows(cols: Tensor, blocks: Tensor, dt: torch.dtype):
+    """[..., R, K] slots as [rows, K] col ids and [rows, K, bs, bs] blocks
+    of ``dt`` whose rows may lie any stride apart (a capacity trim's
+    view): copied only where a row's slots or a block are not dense.
+    The slot reductions and the compact take their operands so."""
+    k, bs = cols.shape[-1], blocks.shape[-1]
+    rows = math.prod(cols.shape[:-1])
+    c = cols.reshape(rows, k)
+    b = blocks.reshape(rows, k, bs, bs).to(dt)
+    if k > 1 and c.stride(1) != 1:
+        c = c.contiguous()
+    if (b.stride(3) != 1 or b.stride(2) != bs
+            or (k > 1 and b.stride(1) != bs * bs)):
+        b = b.contiguous()
+    return c, b
 
 
 def kernel_tier(dtype, precision: str) -> str:

@@ -42,6 +42,7 @@ import torch
 
 from ..config import EMPTY
 from ..core import bell
+from ..ops import compact as cmp
 from ..ops import reduce as red
 from ..ops import spgemm as sp
 from ..utils import trace as tr
@@ -215,9 +216,10 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
     # FULL-SPAN band multiply: the band kernel's contiguous output window
     # cannot express a top-k_out-by-rank truncation, so when the capacity
     # is below the product span (ka + kb - 1) the kernel runs at the full
-    # span, the threshold flush empties the decayed tails, and
-    # bell.compact re-bases to k_out.  The fill stat then reports the
-    # filtered need (surviving slots).
+    # span, the threshold flush empties the decayed tails, and the
+    # compact (``ops/compact.py``: one kernel pass on the card,
+    # bell.compact elsewhere) re-bases to k_out.  The fill stat then
+    # reports the filtered need (surviving slots).
     band = method == "pallas_band"
     compacted = False
     if method in XLA_TIERS:
@@ -237,7 +239,7 @@ def _summa(a: PSMatrix, b: PSMatrix, alpha, threshold, *, k_out: int,
             with tr.span("ntp.compact", timed=True):
                 bad = bucnt.amax() >= EMPTY
                 cnt = (cc != EMPTY).sum(dim=-1).amax().to(torch.int32)
-                cc, cb = bell.compact(cc, cb, k_out)
+                cc, cb = cmp.slot_compact(cc, cb, k_out)
                 fill = torch.where(bad, torch.full((), EMPTY,
                                                    dtype=torch.int32,
                                                    device=dev), cnt)
