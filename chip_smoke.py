@@ -288,6 +288,7 @@ import torch
 import ntpoly_tpu_torch as nt
 from ntpoly_tpu_torch.config import EMPTY
 from ntpoly_tpu_torch.core import bell
+from ntpoly_tpu_torch.ops import _cuda
 from ntpoly_tpu_torch.ops import compact as cmp
 from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.ops import spgemm as sp
@@ -445,7 +446,6 @@ def phase_device():
 
 
 def phase_build():
-    from ntpoly_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
@@ -902,7 +902,8 @@ def reduction_timing(xc, xb) -> None:
                   + 4 * (ac.numel() + bc.numel()))
         mag = float(bell.align_mul(ac, ab.abs(), bc, bb.abs()).double()
                     .sum())
-        return (lambda c=comp: red.slot_dot(ac, ab, bc, bb, compensated=c),
+        return ("slot_dot_pair" if comp else "slot_dot",
+                lambda c=comp: red.slot_dot(ac, ab, bc, bb, compensated=c),
                 lambda c=comp: red.slot_dot_plain(ac, ab, bc, bb,
                                                   compensated=c),
                 lambda: red.slot_dot(skipped(ac), ab, bc, bb,
@@ -914,7 +915,8 @@ def reduction_timing(xc, xb) -> None:
         n = int((c == ar).sum()) * 128
         mag = float(torch.diagonal(bell.trace_blocks(c, b.abs()), dim1=-2,
                                    dim2=-1).double().sum())
-        return (lambda k=comp: red.slot_trace(c, b, 0, compensated=k),
+        return ("slot_trace_pair" if comp else "slot_trace",
+                lambda k=comp: red.slot_trace(c, b, 0, compensated=k),
                 lambda k=comp: red.slot_trace_plain(c, b, 0, compensated=k),
                 lambda: red.slot_trace(skipped(c), b, 0, compensated=comp),
                 mag, 32 * n + 4 * c.numel())
@@ -928,8 +930,14 @@ def reduction_timing(xc, xb) -> None:
              ("dot_pair(X, WH) K 5, 3", dot_case(xc, xb, whc, whb, True)),
              ("trace(X)", trace_case(xc, xb, False)),
              ("trace_pair(X)", trace_case(xc, xb, True))]
-    for what, (kern, plain, skip, mag, nbytes) in cases:
+    for what, (key, kern, plain, skip, mag, nbytes) in cases:
+        before = red.reductions[key]
         got, again = kern(), kern()
+        # one kernel launch a wrapper call: the route took the kernel
+        if red.reductions[key] - before != 2:
+            raise AssertionError(f"slot reduction {what}: "
+                                 f"{red.reductions[key] - before} "
+                                 f"'{key}' launches in two calls")
         # the plain version's compensated pair: the sum to ~n eps^2
         exact = value(plain(True))
         torch.cuda.synchronize()
@@ -1007,7 +1015,7 @@ def compact_timing(xc, xb, times) -> None:
     (the kept blocks never read again)."""
     cc, cb, _ = sp.spgemm(xc, xb, xc, xb, k_out=9, threshold=1e-7,
                           alpha=1.0, precision="high", band_mode="force")
-    assert cmp.kernel_takes(cc, cb, 5)
+    assert _cuda.takes(cb.dtype, cb) and cc.dtype == torch.int32
     before = cmp.compactions["slot_compact"]
     got = cmp.slot_compact(cc, cb, 5)
     again = cmp.slot_compact(cc, cb, 5)

@@ -21,10 +21,11 @@ Two departures from the JAX package's generator:
   * an eighth page, ``kernels.md``, says what each CUDA source in
     ``csrc/`` is, from what the package itself says: the TPU kernel the
     source replaces (or that it replaces none), from the source's own
-    header comment; the Python wrapper that launches it and the plain
-    PyTorch version beside it in ``ops/spgemm.py``, ``ops/reduce.py`` or
-    ``ops/compact.py``, with their docstrings; and the table of
-    ``ops.spgemm.kernel_tier``.
+    header comment; the Python wrappers that launch it and the plain
+    PyTorch version beside each, found in the modules of
+    ``ntpoly_tpu_torch.ops`` by the source their docstrings name, with
+    their docstrings; those modules' counter groups; and the table of
+    the ``kernel_tier`` among them.
     It quotes no times.
 
 The package imports ``torch`` and never ``jax``, so the generator runs
@@ -35,6 +36,7 @@ from __future__ import annotations
 import importlib
 import inspect
 import os
+import pkgutil
 import re
 import sys
 from pathlib import Path
@@ -208,13 +210,29 @@ def _wrappers(mod, source: str) -> list[tuple]:
     return pairs
 
 
+def _kernel_modules() -> list:
+    """The modules of ``ntpoly_tpu_torch.ops`` that hold a wrapper of a
+    ``csrc/*.cu`` source (``_wrappers``)."""
+    from ntpoly_tpu_torch import ops
+    mods = [importlib.import_module(f"{ops.__name__}.{m.name}")
+            for m in pkgutil.iter_modules(ops.__path__)]
+    return [mod for mod in mods if any(
+        _wrappers(mod, p.name) for p in (PACKAGE / "csrc").glob("*.cu"))]
+
+
+def _short(name: str) -> str:
+    return name.removeprefix("ntpoly_tpu_torch.")
+
+
 def render_kernels() -> str:
     """The eighth page: each CUDA source, what it replaces, its wrappers
-    and plain versions, and the tier table."""
+    and plain versions, the counter groups and the tier table."""
     import torch
-    from ntpoly_tpu_torch.ops import compact as cmp
-    from ntpoly_tpu_torch.ops import reduce as red
-    from ntpoly_tpu_torch.ops import spgemm as sp
+    from ntpoly_tpu_torch.utils import trace
+    mods = _kernel_modules()
+    sp = next(mod for mod in mods if hasattr(mod, "kernel_tier"))
+    groups = [(mod, name) for mod in mods for name in trace.snapshot()
+              if isinstance(getattr(mod, name, None), dict)]
     csrc = PACKAGE / "csrc"
     out = [f"# {KERNELS_TITLE}\n",
            "Every function of the JAX package that reaches "
@@ -222,14 +240,16 @@ def render_kernels() -> str:
            "Hopper (`sm_90a`) in `ntpoly_tpu_torch/csrc/`, built by "
            "`ntpoly_tpu_torch.ops._cuda` with `nvcc` at first use (never "
            "at import); so do the slot reductions and the compact, which "
-           "the JAX package leaves to XLA.  Each is launched by a wrapper "
-           "in `ntpoly_tpu_torch.ops.spgemm`, `ntpoly_tpu_torch.ops.reduce` "
-           "or `ntpoly_tpu_torch.ops.compact`, which launches it for CUDA "
-           "tensors and runs its plain PyTorch version for CPU tensors; "
-           "each launch adds one to `ops.spgemm.launches`, "
-           "`ops.reduce.reductions` or `ops.compact.compactions` under the "
-           "wrapper's name.  Rendered from the sources' header comments "
-           "and the wrappers' docstrings.\n"]
+           "the JAX package leaves to XLA.  Each is launched, through "
+           "`ntpoly_tpu_torch.ops._cuda.launch`, by a wrapper in one of "
+           + ", ".join(f"`{mod.__name__}`" for mod in mods)
+           + ", which launches it for CUDA tensors and runs its plain "
+           "PyTorch version for CPU tensors; each launch adds one under "
+           "the wrapper's name to its module's counter group ("
+           + ", ".join(f"`{_short(mod.__name__)}.{name}`"
+                       for mod, name in groups)
+           + ").  Rendered from the sources' header comments and the "
+           "wrappers' docstrings.\n"]
     for path in sorted(csrc.glob("*.cu")):
         paras = _header(path)
         text = " ".join(paras)
@@ -244,22 +264,21 @@ def render_kernels() -> str:
                        + "\n")
         out.extend(p + "\n" for p in paras[1:]
                    if "Replaces" in p or _REPLACES_NONE in p)
-        pairs = [(mod, *pair) for mod in (sp, red, cmp)
+        pairs = [(mod, *pair) for mod in mods
                  for pair in _wrappers(mod, path.name)]
         if not pairs:
             raise MissingNameError(f"no wrapper launches {path.name}")
         for mod, name, fn, plain in pairs:
-            where = mod.__name__.removeprefix("ntpoly_tpu_torch.")
-            out.append(f"### `{where}.{name}{_sig(fn)}`\n")
+            out.append(f"### `{_short(mod.__name__)}.{name}{_sig(fn)}`\n")
             out.append(_doc(fn) + "\n")
-            home = plain.__module__.removeprefix("ntpoly_tpu_torch.")
-            out.append(f"Plain version: `{home}.{plain.__name__}"
-                       f"{_sig(plain)}`\n")
+            out.append(f"Plain version: `{_short(plain.__module__)}."
+                       f"{plain.__name__}{_sig(plain)}`\n")
             out.append(_doc(plain) + "\n")
     for path in sorted(csrc.glob("*.cuh")):
         out.append(f"## `csrc/{path.name}` (shared)\n")
         out.append(_header(path)[0] + "\n")
-    out.append("## Tiers: `ops.spgemm.kernel_tier(dtype, precision)`\n")
+    out.append(f"## Tiers: `{_short(sp.__name__)}.kernel_tier(dtype, "
+               "precision)`\n")
     out.append(_doc(sp.kernel_tier) + "\n")
     out.append("| precision | float32 | float64 |")
     out.append("|---|---|---|")
@@ -269,13 +288,11 @@ def render_kernels() -> str:
                                 for dt in (torch.float32, torch.float64))
                    + " |")
     out.append("")
-    out.append("Launch counters (`ops.spgemm.launches`, reset with "
-               "`ops.spgemm.reset_launches()`): "
-               + ", ".join(f"`{k}`" for k in sp.launches) + ".\n")
-    out.append("Reduction counters (`ops.reduce.reductions`): "
-               + ", ".join(f"`{k}`" for k in red.reductions) + ".\n")
-    out.append("Compaction counters (`ops.compact.compactions`): "
-               + ", ".join(f"`{k}`" for k in cmp.compactions) + ".\n")
+    for mod, name in groups:
+        out.append(f"Counter group '{name}' "
+                   f"(`{_short(mod.__name__)}.{name}`, reset with "
+                   f"`utils.trace.reset_counters({name!r})`): "
+                   + ", ".join(f"`{k}`" for k in getattr(mod, name)) + ".\n")
     return "\n".join(out)
 
 

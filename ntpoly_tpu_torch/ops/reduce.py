@@ -6,18 +6,19 @@ row's diagonal block.  Each returns a 0-d tensor, or with
 ``compensated`` the [2] (hi, lo) two-float pair whose hi + lo resolves
 the sum to ~n*eps^2.
 
-On CUDA tensors of a dtype and block size the kernels take
-(``spgemm.eligible``: real float32/float64, bs a multiple of 8 up to
-128) each wrapper launches ``csrc/reduce.cu``: one pass that reads only
-the matched (or diagonal) blocks, and a deterministic combine of the
+On CUDA blocks of a dtype and block size the kernels take
+(``_cuda.takes``: real float32/float64, bs a multiple of 8 up to 128)
+each wrapper launches ``csrc/reduce.cu``: one pass that reads only the
+matched (or diagonal) blocks, and a deterministic combine of the
 per-CTA pairs.  The kernel computes the pair whichever result is asked
 for, so its plain result is the pair's value hi + lo as a float64 0-d
 tensor, for float32 blocks too; its compensated pair need not have the
-bits of ``comp_sum``'s tree.  Any other CUDA tensor raises; callers
-route complex data and other block sizes to the plain versions
-(``parallel/algebra.py``).  On CPU tensors the plain versions run
-(``*_plain``: ``core/bell.py``'s ``dot`` and ``trace`` in the blocks'
-dtype, and ``comp_sum`` of ``align_mul`` or of the diagonal).
+bits of ``comp_sum``'s tree.  Such an input at fault (col ids not
+int32, A and B on two devices or of rows or block sizes that do not
+match) raises.  Every other input, CPU tensors, complex data and other
+block sizes, takes the plain version (``*_plain``: ``core/bell.py``'s
+``dot`` and ``trace`` in the blocks' dtype, and ``comp_sum`` of
+``align_mul`` or of the diagonal), as ``slot_compact`` routes.
 
 ``reductions`` counts kernel launches per wrapper (the counter group
 'reductions' of ``utils/trace.py``; a plain version counts nothing).
@@ -30,7 +31,7 @@ import torch
 
 from ..core import bell
 from ..utils import trace
-from .spgemm import eligible, slot_rows
+from . import _cuda
 
 Tensor = torch.Tensor
 
@@ -41,8 +42,6 @@ reductions = trace.counter_group("reductions", (
 # of loads in flight on each SM (the kernel takes fewer where the rows
 # are fewer)
 CTAS_PER_SM = 4
-
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,34 +57,6 @@ def _max_grid(device: torch.device) -> int:
     return CTAS_PER_SM * _sms(index)
 
 
-def _checked(what: str, cols: Tensor, blocks: Tensor, dt) -> None:
-    if blocks.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for {blocks.device}")
-    if not eligible(dt, blocks.shape[-1]):
-        raise TypeError(f"the {what} kernel takes float32/float64 blocks "
-                        f"of a size that is a multiple of 8 up to 128; got "
-                        f"{dt}, bs {blocks.shape[-1]}")
-    if cols.dtype != torch.int32 or cols.device != blocks.device:
-        raise TypeError(f"{what}: col ids must be int32 on the blocks' "
-                        f"device")
-    if tuple(blocks.shape[:-2]) != tuple(cols.shape) \
-            or blocks.shape[-1] != blocks.shape[-2]:
-        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} do not "
-                         f"match col ids {tuple(cols.shape)}")
-
-
-def _launch(entry: str, key: str, args, ints) -> None:
-    """Launch C entry ``entry`` on the current stream with the pointers
-    of ``args`` and then ``ints``; raise on a CUDA error, else count one
-    launch of ``key``."""
-    from . import _cuda
-    fn = getattr(_cuda.library(), entry)
-    stream = torch.cuda.current_stream().cuda_stream
-    code = fn(*[x.data_ptr() for x in args], *ints, stream)
-    _cuda.check(code, key)
-    reductions[key] += 1
-
-
 def _result(dt, device, compensated: bool) -> Tensor:
     """The output: [2] (hi, lo) of ``dt`` with ``compensated``, else
     the 0-d float64 value."""
@@ -97,39 +68,29 @@ def _result(dt, device, compensated: bool) -> Tensor:
 def slot_dot(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
              b_blocks: Tensor, *, compensated: bool) -> Tensor:
     """sum_ij A_ij * B_ij over the slots A and B share: the dot kernel
-    (``csrc/reduce.cu``) on CUDA tensors, its plain version on CPU
-    tensors.  A [..., R, KA] and B [..., R, KB] slots of one shape of
-    rows; -> 0-d (float64 from the kernel), or [2] (hi, lo) with
-    ``compensated``.  Where A and B are one tensor each block is read
-    once."""
-    if a_blocks.device.type == "cpu":
+    (``csrc/reduce.cu``) where ``_cuda.takes``, else its plain version.
+    A [..., R, KA] and B [..., R, KB] slots of one shape of rows; -> 0-d
+    (float64 from the kernel), or [2] (hi, lo) with ``compensated``.
+    Where A and B are one tensor each block is read once."""
+    dt = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
+    if not _cuda.takes(dt, a_blocks):
         return slot_dot_plain(a_cols, a_blocks, b_cols, b_blocks,
                               compensated=compensated)
-    dt = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
-    _checked("slot_dot", a_cols, a_blocks, dt)
-    _checked("slot_dot", b_cols, b_blocks, dt)
-    if (a_cols.shape[:-1] != b_cols.shape[:-1]
-            or a_blocks.shape[-1] != b_blocks.shape[-1]
-            or a_blocks.device != b_blocks.device):
-        raise ValueError(f"slot_dot: A {tuple(a_blocks.shape)} and B "
-                         f"{tuple(b_blocks.shape)} differ in rows, block "
-                         f"size or device")
-    ac, ab = slot_rows(a_cols, a_blocks, dt)
-    bc, bb = slot_rows(b_cols, b_blocks, dt)
+    ac, ab, bc, bb = _cuda.slot_operands(dt, (a_cols, a_blocks),
+                                         (b_cols, b_blocks))
     rows, bs = ac.shape[0], ab.shape[-1]
     dev = ab.device
     if rows == 0:
         return _result(dt, dev, compensated).zero_()
-    if ab.data_ptr() % 16 or bb.data_ptr() % 16:
-        raise ValueError("slot_dot: blocks must start on 16 bytes")
     grid = _max_grid(dev)
     partial = torch.empty((grid, 2), dtype=dt, device=dev)
     out = _result(dt, dev, compensated)
-    _launch("ntp_slot_dot" + _SUFFIX[dt],
-            "slot_dot_pair" if compensated else "slot_dot",
-            (ac, ab, bc, bb, partial, out),
-            (ac.stride(0), ab.stride(0), bc.stride(0), bb.stride(0), rows,
-             ac.shape[1], bc.shape[1], bs, grid, int(compensated)))
+    _cuda.launch("ntp_slot_dot" + _cuda.SUFFIX[dt], reductions,
+                 "slot_dot_pair" if compensated else "slot_dot",
+                 (ac, ab, bc, bb, partial, out),
+                 (ac.stride(0), ab.stride(0), bc.stride(0), bb.stride(0),
+                  rows, ac.shape[1], bc.shape[1], bs, grid,
+                  int(compensated)))
     return out
 
 
@@ -147,17 +108,16 @@ def slot_dot_plain(a_cols: Tensor, a_blocks: Tensor, b_cols: Tensor,
 def slot_trace(cols: Tensor, blocks: Tensor, row_offset: int = 0, *,
                compensated: bool) -> Tensor:
     """The trace of [..., R, K] slots whose local block row r is global
-    block row ``row_offset + r``: the trace kernel (``csrc/reduce.cu``)
-    on CUDA tensors, reading only each row's diagonal block's diagonal,
-    its plain version on CPU tensors; -> 0-d (float64 from the kernel),
-    or [2] (hi, lo) with ``compensated``."""
-    if blocks.device.type == "cpu":
+    block row ``row_offset + r``: the trace kernel (``csrc/reduce.cu``),
+    reading only each row's diagonal block's diagonal, where
+    ``_cuda.takes``, else its plain version; -> 0-d (float64 from the
+    kernel), or [2] (hi, lo) with ``compensated``."""
+    dt = blocks.dtype
+    if not _cuda.takes(dt, blocks):
         return slot_trace_plain(cols, blocks, row_offset,
                                 compensated=compensated)
-    dt = blocks.dtype
-    _checked("slot_trace", cols, blocks, dt)
     period = cols.shape[-2]
-    c, b = slot_rows(cols, blocks, dt)
+    c, b = _cuda.slot_operands(dt, (cols, blocks))
     rows, bs = c.shape[0], b.shape[-1]
     dev = b.device
     if rows == 0:
@@ -165,11 +125,11 @@ def slot_trace(cols: Tensor, blocks: Tensor, row_offset: int = 0, *,
     grid = _max_grid(dev)
     partial = torch.empty((grid, 2), dtype=dt, device=dev)
     out = _result(dt, dev, compensated)
-    _launch("ntp_slot_trace" + _SUFFIX[dt],
-            "slot_trace_pair" if compensated else "slot_trace",
-            (c, b, partial, out),
-            (c.stride(0), b.stride(0), rows, period, int(row_offset),
-             c.shape[1], bs, grid, int(compensated)))
+    _cuda.launch("ntp_slot_trace" + _cuda.SUFFIX[dt], reductions,
+                 "slot_trace_pair" if compensated else "slot_trace",
+                 (c, b, partial, out),
+                 (c.stride(0), b.stride(0), rows, period, int(row_offset),
+                  c.shape[1], bs, grid, int(compensated)))
     return out
 
 

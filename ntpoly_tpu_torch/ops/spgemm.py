@@ -45,8 +45,9 @@ share one product (``csrc/tc.cuh``).
 
 Each kernel has a plain PyTorch version beside it with the same inputs
 and outputs (``*_plain``).  The wrappers take the plain version only
-for tensors on the CPU; for a CUDA tensor they launch the kernel or
-raise.  ``launches`` counts kernel launches per wrapper.
+for tensors on the CPU; for a CUDA tensor they launch the kernel
+through ``_cuda.launch`` or raise (``ops/_cuda.py`` says why and what
+every kernel takes).  ``launches`` counts kernel launches per wrapper.
 
 Format contract: A [R, KA] slots whose col ids index block-rows of B;
 B [NBK, KB] slots with global block-col ids; C [R, k_out] with global
@@ -55,7 +56,6 @@ block fell below the threshold.
 """
 from __future__ import annotations
 
-import math
 import warnings
 from typing import Tuple
 
@@ -64,6 +64,7 @@ import torch
 
 from ..config import EMPTY
 from ..utils import trace
+from . import _cuda
 
 Tensor = torch.Tensor
 
@@ -241,30 +242,6 @@ def _v3_window(a_cols: Tensor, g_rows: int):
     hi = torch.where(valid, grp, -1).amax(dim=1)
     width = torch.where(valid.any(dim=1), hi - lo + 1, 0).amax()
     return torch.where(lo == EMPTY, 0, lo).to(torch.int32), width
-
-
-def eligible(dtype, bs: int) -> bool:
-    """Can the kernels run this shape: a real f32/f64 dtype and a block
-    size that is a multiple of 8 up to 128."""
-    return (dtype in (torch.float32, torch.float64) and bs % 8 == 0
-            and 0 < bs <= 128)
-
-
-def slot_rows(cols: Tensor, blocks: Tensor, dt: torch.dtype):
-    """[..., R, K] slots as [rows, K] col ids and [rows, K, bs, bs] blocks
-    of ``dt`` whose rows may lie any stride apart (a capacity trim's
-    view): copied only where a row's slots or a block are not dense.
-    The slot reductions and the compact take their operands so."""
-    k, bs = cols.shape[-1], blocks.shape[-1]
-    rows = math.prod(cols.shape[:-1])
-    c = cols.reshape(rows, k)
-    b = blocks.reshape(rows, k, bs, bs).to(dt)
-    if k > 1 and c.stride(1) != 1:
-        c = c.contiguous()
-    if (b.stride(3) != 1 or b.stride(2) != bs
-            or (k > 1 and b.stride(1) != bs * bs)):
-        b = b.contiguous()
-    return c, b
 
 
 def kernel_tier(dtype, precision: str) -> str:
@@ -586,92 +563,42 @@ def spgemm_uniform_plain(a_cols, a_blocks, b_blocks, wlo, *, kb: int,
 # kernel wrappers
 # ----------------------------------------------------------------------------
 
-def _check_operands(a_cols, a_blocks, b_cols, b_blocks, idx):
-    """Device, dtype, shape and layout checks before a kernel launch."""
-    dev = a_blocks.device
-    for name, x in (("a_cols", a_cols), ("b_cols", b_cols),
-                    ("b_blocks", b_blocks), ("index", idx)):
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, A on {dev}")
-    for name, x in (("a_cols", a_cols), ("b_cols", b_cols),
-                    ("index", idx)):
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if a_blocks.dtype != b_blocks.dtype or not eligible(
-            a_blocks.dtype, a_blocks.shape[-1]):
-        raise TypeError(
-            f"kernels take matching float32/float64 blocks with bs a "
-            f"multiple of 8 up to 128; got {a_blocks.dtype}, "
-            f"{b_blocks.dtype}, bs={a_blocks.shape[-1]}")
-    if b_blocks.shape[-1] != a_blocks.shape[-1]:
-        raise ValueError("A and B block sizes differ")
-    return [x.contiguous() for x in (a_cols, a_blocks, b_cols, b_blocks,
-                                     idx)]
-
-
-def _check_panel(a_cols, a_blocks, panel, kb, index):
-    """Device, shape, layout and alignment checks before a launch of a
-    kernel that reads B as a panel; ``index`` names the int32 tensors
-    besides a_cols (the plan first).  -> contiguous tensors."""
-    dev = a_blocks.device
-    for name, x in {"a_cols": a_cols, "panel": panel, **index}.items():
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, A on {dev}")
-        if name != "panel" and x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
-    R, KA = a_cols.shape
-    bs = a_blocks.shape[-1]
-    if bs % 8 or not 0 < bs <= 128:
-        raise TypeError(f"kernels take bs a multiple of 8 up to 128, "
-                        f"got {bs}")
-    if (tuple(a_blocks.shape) != (R, KA, bs, bs) or panel.dim() != 3
-            or tuple(panel.shape[1:]) != (bs, kb * bs)):
-        raise ValueError(f"A {tuple(a_blocks.shape)} and panel "
-                         f"{tuple(panel.shape)} do not match [R, KA, bs, "
+def _check_panel(a_cols, a_blocks, panel, kb, index, dtypes=_cuda.REAL):
+    """The operands of a kernel that reads B as a panel, checked
+    (``_cuda.operands``, blocks of ``dtypes``; ``index`` names the int32
+    tensors besides a_cols, the plan first) -> contiguous a_cols, the
+    index tensors, A and the panel."""
+    *ids, ab, bp = _cuda.operands({"a_cols": a_cols, **index},
+                                  {"A": a_blocks, "panel": panel}, dtypes)
+    R, KA = ids[0].shape
+    bs = ab.shape[-1]
+    if (tuple(ab.shape) != (R, KA, bs, bs) or bp.dim() != 3
+            or tuple(bp.shape[1:]) != (bs, kb * bs)):
+        raise ValueError(f"A {tuple(ab.shape)} and panel "
+                         f"{tuple(bp.shape)} do not match [R, KA, bs, "
                          f"bs] and [NBK, bs, KB*bs] at KB={kb}")
-    plan = next(iter(index.values()))
-    if tuple(plan.shape) != (R, KA * kb):
-        raise ValueError(f"plan shape {tuple(plan.shape)} != {(R, KA * kb)}")
-    out = [x.contiguous() for x in (a_cols, a_blocks, panel,
-                                    *index.values())]
-    if out[1].data_ptr() % 16 or out[2].data_ptr() % 16:
-        raise ValueError("A and the panel must start on 16 bytes")
-    return out
-
-
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
-
-
-def _launch(entry, key, args, ints, scalars=()):
-    """Launch C entry ``entry`` on the current stream with the pointers
-    of ``args`` (None: a null pointer), then ``ints`` and ``scalars``;
-    raise on a CUDA error, else count one launch of ``key``."""
-    from . import _cuda
-    fn = getattr(_cuda.library(), entry)
-    stream = torch.cuda.current_stream().cuda_stream
-    code = fn(*[None if x is None else x.data_ptr() for x in args], *ints,
-              *map(float, scalars), stream)
-    _cuda.check(code, key)
-    launches[key] += 1
+    if tuple(ids[1].shape) != (R, KA * kb):
+        raise ValueError(f"plan shape {tuple(ids[1].shape)} != "
+                         f"{(R, KA * kb)}")
+    return (*ids, ab, bp)
 
 
 def split_bf16(x: Tensor, *, lo: bool = True):
     """The split pass (``csrc/spgemm_band.cu``) on a CUDA tensor, its
     plain version (``split_bf16x3``) on a CPU tensor: the bfloat16
     planes (hi, lo) of float32 x, lo None unless asked for."""
-    if x.device.type == "cpu":
+    if not _cuda.route(x, "split"):
         return split_bf16x3(x) if lo else (x.to(torch.bfloat16), None)
-    if x.device.type != "cuda":
-        raise ValueError(f"no split kernel for {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"the split pass takes float32, got {x.dtype}")
     x = x.contiguous()
-    if x.numel() % 4 or x.data_ptr() % 16:
+    if not _cuda.on_vectors(x.data_ptr(), x.numel() * x.element_size()):
         raise ValueError("the split pass takes whole float4 vectors on 16 "
                          "bytes")
     hi = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     low = torch.empty_like(hi) if lo else None
-    _launch("ntp_split_bf16", "split_bf16", (x, hi, low), (x.numel(),))
+    _cuda.launch("ntp_split_bf16", launches, "split_bf16", (x, hi, low),
+                 (x.numel(),))
     return hi, low
 
 
@@ -702,15 +629,16 @@ def _run_kernel(name, a_cols, a_blocks, b_cols, b_blocks, idx, want,
     device predicate (int32, one element) under which the kernel writes
     ``out`` (its (blocks, norms) buffers) only where run is nonzero;
     such a launch counts under ``name + '_pred'``."""
-    ac, ab, bc, bb, ix = _check_operands(a_cols, a_blocks, b_cols,
-                                         b_blocks, idx)
+    ac, bc, ix, ab, bb = _cuda.operands(
+        {"a_cols": a_cols, "b_cols": b_cols, "index": idx},
+        {"A": a_blocks, "B": b_blocks})
     R, KA = ac.shape
     NBK, KB = bc.shape
     bs = ab.shape[-1]
+    if bb.shape[-1] != bs:
+        raise ValueError("A and B block sizes differ")
     if tuple(ix.shape) != want:
         raise ValueError(f"index shape {tuple(ix.shape)} != {want}")
-    if ab.data_ptr() % 16 or bb.data_ptr() % 16:
-        raise ValueError("A and B must start on 16 bytes")
     tier = kernel_tier(ab.dtype, precision)
     k_out = tail[0]
     key = name
@@ -732,14 +660,14 @@ def _run_kernel(name, a_cols, a_blocks, b_cols, b_blocks, idx, want,
                              "on A's device")
         key = name + "_pred"
     if tier == "highest":
-        _launch(f"ntp_{name}{_SUFFIX[ab.dtype]}", key,
-                (ac, ab, bc, bb, ix, out, nrm, run), (R, KA, KB, *tail),
-                (alpha, threshold))
+        _cuda.launch(f"ntp_{name}{_cuda.SUFFIX[ab.dtype]}", launches, key,
+                     (ac, ab, bc, bb, ix, out, nrm, run),
+                     (R, KA, KB, *tail), (alpha, threshold))
     else:
         (ah, al), (bh, bl) = planes or _planes(ab, bb, tier)
-        _launch(f"ntp_{name}_tc", key,
-                (ac, ah, al, bc, bh, bl, ix, out, nrm, run),
-                (R, KA, KB, NBK, *tail), (alpha, threshold))
+        _cuda.launch(f"ntp_{name}_tc", launches, key,
+                     (ac, ah, al, bc, bh, bl, ix, out, nrm, run),
+                     (R, KA, KB, NBK, *tail), (alpha, threshold))
     return out, nrm
 
 
@@ -753,13 +681,11 @@ def spgemm_general(a_cols, a_blocks, b_cols, b_blocks, plan, *,
     int32 on the device) and ``out`` ((blocks, norms) buffers), the
     product is written into ``out`` only where run is nonzero
     (``_run_kernel``); ``planes``: A's and B's split planes."""
-    if a_blocks.device.type == "cpu":
+    if not _cuda.route(a_blocks, "SpGEMM"):
         return spgemm_general_plain(a_cols, a_blocks, b_cols, b_blocks,
                                     plan, k_out=k_out, alpha=alpha,
                                     threshold=threshold, precision=precision,
                                     run=run, out=out)
-    if a_blocks.device.type != "cuda":
-        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     R, KA = a_cols.shape
     return _run_kernel("spgemm_general", a_cols, a_blocks, b_cols, b_blocks,
                        plan, (R, KA * b_cols.shape[1]),
@@ -775,13 +701,11 @@ def spgemm_band(a_cols, a_blocks, b_cols, b_blocks, gg0, *, k_out: int,
     ``kernel_tier`` (float32 'high' and 'bf16': the split pass, then the
     tensor cores), its plain version on CPU tensors; ``run``, ``out``
     and ``planes`` as :func:`spgemm_general`'s."""
-    if a_blocks.device.type == "cpu":
+    if not _cuda.route(a_blocks, "SpGEMM"):
         return spgemm_band_plain(a_cols, a_blocks, b_cols, b_blocks, gg0,
                                  k_out=k_out, span=span, alpha=alpha,
                                  threshold=threshold, precision=precision,
                                  run=run, out=out)
-    if a_blocks.device.type != "cuda":
-        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     return _run_kernel("spgemm_band", a_cols, a_blocks, b_cols, b_blocks,
                        gg0, tuple(a_cols.shape),
                        (k_out, span, a_blocks.shape[-1]), precision, alpha,
@@ -792,25 +716,19 @@ def spgemm_stream(a_cols, a_blocks, panel, plan, *, kb: int, k_out: int,
                   alpha: float, threshold: float):
     """Stream kernel (``csrc/spgemm_stream.cu``) on CUDA tensors, its
     plain version on CPU tensors."""
-    if a_blocks.device.type == "cpu":
+    if not _cuda.route(a_blocks, "SpGEMM"):
         return spgemm_stream_plain(a_cols, a_blocks, panel, plan, kb=kb,
                                    k_out=k_out, alpha=alpha,
                                    threshold=threshold)
-    if a_blocks.device.type != "cuda":
-        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
-    if panel.dtype != a_blocks.dtype or not eligible(a_blocks.dtype,
-                                                     a_blocks.shape[-1]):
-        raise TypeError(f"the stream kernel takes matching float32/float64 "
-                        f"operands; got {a_blocks.dtype}, {panel.dtype}")
-    ac, ab, bp, pl = _check_panel(a_cols, a_blocks, panel, kb,
+    ac, pl, ab, bp = _check_panel(a_cols, a_blocks, panel, kb,
                                   {"plan": plan})
     R, KA = ac.shape
     bs = ab.shape[-1]
     out = ab.new_empty((R, k_out, bs, bs))
     nrm = ab.new_empty((R, k_out))
-    _launch("ntp_spgemm_stream" + _SUFFIX[ab.dtype], "spgemm_stream",
-            (ac, ab, bp, pl, out, nrm), (R, KA, kb, bp.shape[0], k_out, bs),
-            (alpha, threshold))
+    _cuda.launch("ntp_spgemm_stream" + _cuda.SUFFIX[ab.dtype], launches,
+                 "spgemm_stream", (ac, ab, bp, pl, out, nrm),
+                 (R, KA, kb, bp.shape[0], k_out, bs), (alpha, threshold))
     return out, nrm
 
 
@@ -828,10 +746,8 @@ def spgemm_window(a_cols, a_blocks, panel, plan, wlo, *, kb: int,
     split) and writes float32."""
     kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, precision=precision,
               alpha=alpha, threshold=threshold)
-    if a_blocks.device.type == "cpu":
+    if not _cuda.route(a_blocks, "SpGEMM"):
         return spgemm_window_plain(a_cols, a_blocks, panel, plan, wlo, **kw)
-    if a_blocks.device.type != "cuda":
-        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     return _run_window(a_cols, a_blocks, panel, plan, wlo, **kw)
 
 
@@ -841,8 +757,9 @@ def _run_window(a_cols, a_blocks, panel, plan, wlo, *, kb, k_out, g_rows,
     the ``split_bf16`` planes of A and the panel, split already, for
     timing the tensor-core product alone."""
     dt = _window_types(a_cols, a_blocks, panel, wlo, g_rows, w, precision)
-    ac, ab, bp, pl, wl = _check_panel(a_cols, a_blocks, panel, kb,
-                                      {"plan": plan, "wlo": wlo})
+    ac, pl, wl, ab, bp = _check_panel(a_cols, a_blocks, panel, kb,
+                                      {"plan": plan, "wlo": wlo},
+                                      tuple(_WINDOW_OUT))
     R, KA = ac.shape
     bs = ab.shape[-1]
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=ab.device)
@@ -851,12 +768,13 @@ def _run_window(a_cols, a_blocks, panel, plan, wlo, *, kb, k_out, g_rows,
     tier = kernel_tier(ab.dtype, precision)
     if ab.dtype == torch.bfloat16 or tier != "highest":
         (ah, al), (bh, bl) = planes or _planes(ab, bp, tier)
-        _launch("ntp_spgemm_window_tc", "spgemm_window",
-                (ac, ah, al, bh, bl, pl, wl, out, nrm), ints,
-                (alpha, threshold))
+        _cuda.launch("ntp_spgemm_window_tc", launches, "spgemm_window",
+                     (ac, ah, al, bh, bl, pl, wl, out, nrm), ints,
+                     (alpha, threshold))
     else:
-        _launch("ntp_spgemm_window" + _SUFFIX[ab.dtype], "spgemm_window",
-                (ac, ab, bp, pl, wl, out, nrm), ints, (alpha, threshold))
+        _cuda.launch("ntp_spgemm_window" + _cuda.SUFFIX[ab.dtype], launches,
+                     "spgemm_window", (ac, ab, bp, pl, wl, out, nrm), ints,
+                     (alpha, threshold))
     return out, nrm
 
 
@@ -873,10 +791,8 @@ def spgemm_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb: int, k_out: int,
     kw = dict(kb=kb, k_out=k_out, g_rows=g_rows, w=w, span=span,
               addressing=addressing, precision=precision, alpha=alpha,
               threshold=threshold)
-    if a_blocks.device.type == "cpu":
+    if not _cuda.route(a_blocks, "SpGEMM"):
         return spgemm_uniform_plain(a_cols, a_blocks, b_blocks, wlo, **kw)
-    if a_blocks.device.type != "cuda":
-        raise ValueError(f"no SpGEMM kernel for {a_blocks.device}")
     return _run_uniform(a_cols, a_blocks, b_blocks, wlo, **kw)
 
 
@@ -889,38 +805,24 @@ def _run_uniform(a_cols, a_blocks, b_blocks, wlo, *, kb, k_out, g_rows, w,
     dt = _uniform_types(a_cols, a_blocks, b_blocks, wlo, kb=kb,
                         g_rows=g_rows, w=w, span=span,
                         addressing=addressing, precision=precision)
-    if dt == torch.float64:
-        raise TypeError("the uniform kernel has no float64 instance; "
-                        "float64 runs on CPU tensors")
-    dev = a_blocks.device
-    for name, x in (("a_cols", a_cols), ("b_blocks", b_blocks),
-                    ("wlo", wlo)):
-        if x.device != dev:
-            raise ValueError(f"{name} on {x.device}, A on {dev}")
-    for name, x in (("a_cols", a_cols), ("wlo", wlo)):
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
-    R, KA = a_cols.shape
-    bs = a_blocks.shape[-1]
-    if bs % 8 or not 0 < bs <= 128:
-        raise TypeError(f"kernels take bs a multiple of 8 up to 128, "
-                        f"got {bs}")
-    ac, ab, bb, wl = (x.contiguous() for x in (a_cols, a_blocks, b_blocks,
-                                               wlo))
-    if ab.data_ptr() % 16 or bb.data_ptr() % 16:
-        raise ValueError("A and B must start on 16 bytes")
+    ac, wl, ab, bb = _cuda.operands({"a_cols": a_cols, "wlo": wlo},
+                                    {"A": a_blocks, "B": b_blocks},
+                                    (torch.float32, torch.bfloat16))
+    R, KA = ac.shape
+    bs = ab.shape[-1]
+    dev = ab.device
     out = torch.empty((R, k_out, bs, bs), dtype=dt, device=dev)
     nrm = torch.empty((R, k_out, bs), dtype=dt, device=dev)
     ints = (R, KA, kb, bb.shape[0], k_out, span, bs, g_rows, w,
             int(addressing == "position"))
     if precision == "highest":
-        _launch("ntp_spgemm_uniform_f32", "spgemm_uniform",
-                (ac, ab, bb, wl, out, nrm), ints, (alpha, threshold))
+        _cuda.launch("ntp_spgemm_uniform_f32", launches, "spgemm_uniform",
+                     (ac, ab, bb, wl, out, nrm), ints, (alpha, threshold))
     else:
         (ah, al), (bh, bl) = planes or _planes(ab, bb, precision)
-        _launch("ntp_spgemm_uniform_tc", "spgemm_uniform",
-                (ac, ah, al, bh, bl, wl, out, nrm), ints,
-                (alpha, threshold))
+        _cuda.launch("ntp_spgemm_uniform_tc", launches, "spgemm_uniform",
+                     (ac, ah, al, bh, bl, wl, out, nrm), ints,
+                     (alpha, threshold))
     return out, nrm
 
 
@@ -1035,7 +937,7 @@ def _select(args, gg0, plan, use_band, span, kw):
     a_cols, ab, b_cols, bb = args
     R, bs = a_cols.shape[0], ab.shape[-1]
     shape = (R, kw["k_out"], bs, bs)
-    cuda = ab.device.type == "cuda"
+    cuda = _cuda.on_card(ab)
     new = torch.empty if cuda else torch.zeros
     out = (new(shape, dtype=ab.dtype, device=ab.device),
            new(shape[:2], dtype=ab.dtype, device=ab.device))

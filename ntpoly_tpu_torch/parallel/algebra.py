@@ -42,6 +42,7 @@ import torch
 
 from ..config import EMPTY
 from ..core import bell
+from ..ops import _cuda
 from ..ops import compact as cmp
 from ..ops import reduce as red
 from ..ops import spgemm as sp
@@ -308,7 +309,7 @@ def _pick_method(a: PSMatrix, b: PSMatrix, k_out: int) -> str:
     kernels refuse (reference parallel/algebra.py ``_pick_method``):
     'dense' at 90% block occupancy, 'cand' while a row's candidates
     stay within max(64, 8 k_out), else 'acc'."""
-    if sp.eligible(torch.promote_types(a.dtype, b.dtype), a.bs):
+    if _cuda.eligible(torch.promote_types(a.dtype, b.dtype), a.bs):
         return "pallas"
     if min(a.k, b.k) >= 0.9 * a.nb:
         return "dense"
@@ -508,27 +509,14 @@ def _sum_pair(a: PSMatrix, p: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo])
 
 
-def _slot_kernels(*mats: PSMatrix) -> bool:
-    """Do the slot reductions take the kernels of ``ops/reduce.py``
-    (launched on the card, their plain versions on the CPU): a dtype and
-    block size the kernels take, as :func:`_pick_method` routes the
-    multiply.  Complex data and other block sizes take the plain
-    versions on every device."""
-    dt = mats[0].dtype
-    for m in mats[1:]:
-        dt = torch.promote_types(dt, m.dtype)
-    return sp.eligible(dt, mats[0].bs)
-
-
 def _local_trace(a: PSMatrix, compensated: bool) -> torch.Tensor:
-    fn = red.slot_trace if _slot_kernels(a) else red.slot_trace_plain
-    return fn(a.col_ids, a.blocks, a.row_offset, compensated=compensated)
+    return red.slot_trace(a.col_ids, a.blocks, a.row_offset,
+                          compensated=compensated)
 
 
 def _local_dot(a: PSMatrix, b: PSMatrix, compensated: bool) -> torch.Tensor:
-    fn = red.slot_dot if _slot_kernels(a, b) else red.slot_dot_plain
-    return fn(a.col_ids, a.blocks, b.col_ids, b.blocks,
-              compensated=compensated)
+    return red.slot_dot(a.col_ids, a.blocks, b.col_ids, b.blocks,
+                        compensated=compensated)
 
 
 @tr.spanned("ntp.reduce", timed=True)

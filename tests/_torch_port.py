@@ -5,9 +5,11 @@ the PyTorch port (``ntpoly_tpu_torch``).
 Importing it caps torch at one intra-op thread: the suite runs in
 several worker processes at once, and the port's small-op loops slowed
 about a hundredfold when each worker also ran torch's default thread
-pool on the same cores."""
-import jax.numpy as jnp
+pool on the same cores.  It imports JAX only where a helper needs it,
+so that the tests of the card, which import its ``card`` fixture, run
+where JAX is not installed."""
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -54,7 +56,17 @@ def band_ell(rng, rows, k, bs, *, holes=0.0, capacity=None,
 
 
 def j(x):
+    import jax.numpy as jnp
     return jnp.asarray(x)
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, for the tests marked ``card`` (the kernels of
+    ``ntpoly_tpu_torch/csrc``); they skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels of ntpoly_tpu_torch/csrc")
+    return torch.device("cuda")
 
 
 def t(x):

@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import card  # noqa: F401  (the tests of the card)
 from ntpoly_tpu_torch.core import bell
+from ntpoly_tpu_torch.ops import _cuda
 from ntpoly_tpu_torch.ops import compact as cmp
 from ntpoly_tpu_torch.parallel import algebra as alg
 from ntpoly_tpu_torch.parallel import pmatrix as PM
@@ -149,13 +151,17 @@ def test_cpu_planted_cases_show():
     assert kept == {int(cols[4, 0])}
 
 
-def test_cpu_route_and_helpers():
-    """CPU tensors never take the kernels and run ``bell.compact``;
+def test_cpu_route_and_helpers(monkeypatch):
+    """CPU tensors never take the kernels (``_cuda.takes``, whose device
+    predicate alone turns them away) and run ``bell.compact``;
     ``rows_differ`` tells -0.0 from +0.0 and sees a changed col id;
     ``near_ties`` finds the row of one block in every slot."""
     cols, blocks = planted("m_gt_k", 0.0, "f32", 8)
     c, b = torch.from_numpy(cols), torch.from_numpy(blocks)
-    assert not cmp.kernel_takes(c, b, 5)
+    assert not _cuda.takes(b.dtype, b)
+    with monkeypatch.context() as card_route:
+        card_route.setattr(_cuda, "on_card", lambda x: True)
+        assert _cuda.takes(b.dtype, b)
     assert cmp.compact is bell.compact
     want = bell.compact(c, b, 5)
     got = (want[0].clone(), want[1].clone())
@@ -194,13 +200,6 @@ def test_summa_full_span_branch_calls_the_wrapper(monkeypatch):
 # ----------------------------------------------------------------------------
 # the card
 # ----------------------------------------------------------------------------
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel of csrc/compact.cu")
-    return torch.device("cuda")
-
 
 def launched(fn):
     """fn() -> (its result, the kernel launches it counted)."""
@@ -296,7 +295,9 @@ def test_card_ineligible_takes_plain(card, what):
     cols = torch.arange(m, dtype=ids).repeat(4, 1)
     blocks = torch.randn((4, m, bs, bs), generator=gen).to(dtype)
     c, b = cols.to(card), blocks.to(card)
-    assert not cmp.kernel_takes(c, b, 5)
+    # int64 col ids pass the route's data kind; the compact's own check
+    # turns them away
+    assert _cuda.takes(b.dtype, b) == (what == "cols_int64")
     got, n = launched(lambda: cmp.slot_compact(c, b, 5))
     assert n == 0
     want = bell.compact(c, b, 5)
@@ -320,7 +321,7 @@ def test_card_full_span_widths(card, m, k_out, dt):
                          dtype=torch.float64) * scale
     c = ids.to(card)
     b = blocks.to(DTYPES[dt][1]).to(card)
-    assert cmp.kernel_takes(c, b, k_out)
+    assert _cuda.takes(b.dtype, b)
     got, n = launched(lambda: cmp.slot_compact(c, b, k_out))
     assert n == 1
     bad = cmp.rows_differ(got, bell.compact(c, b, k_out))

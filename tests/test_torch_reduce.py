@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import card  # noqa: F401  (the tests of the card)
+from ntpoly_tpu_torch.ops import _cuda
 from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.parallel import algebra as alg
 from ntpoly_tpu_torch.parallel import pmatrix as PM
@@ -182,9 +184,12 @@ def test_all_empty_and_same_operand(dt):
 
 def test_algebra_routes_by_eligibility(monkeypatch):
     """``alg.dot``, ``trace`` and their pairs reduce through the wrappers
-    for dtypes and block sizes the kernels take, and through the plain
-    versions for complex data and other block sizes."""
-    calls = []
+    for every dtype and block size, and the route is the wrappers' own:
+    on the CPU the plain versions, and with the card's device predicate
+    (``_cuda.on_card`` patched, the launches recorded) a launch for the
+    dtypes and block sizes the kernels take and the plain versions for
+    complex data and other block sizes."""
+    calls, launched = [], []
     for name in ("slot_dot", "slot_trace", "slot_dot_plain",
                  "slot_trace_plain"):
         fn = getattr(red, name)
@@ -192,10 +197,11 @@ def test_algebra_routes_by_eligibility(monkeypatch):
                             calls.append(_n) or _fn(*a, **kw))
     grid = ProcessGrid(device="cpu")
     rng = np.random.default_rng(3)
-    for dtype, bs, route in ((torch.float32, 8, ""),
-                             (torch.float64, 16, ""),
-                             (torch.complex128, 8, "_plain"),
-                             (torch.float64, 4, "_plain")):
+    plain = ["slot_trace", "slot_trace_plain", "slot_dot", "slot_dot_plain"]
+    for dtype, bs, takes in ((torch.float32, 8, True),
+                             (torch.float64, 16, True),
+                             (torch.complex128, 8, False),
+                             (torch.float64, 4, False)):
         d = rng.standard_normal((32, 32))
         if dtype.is_complex:
             d = d + 1j * rng.standard_normal((32, 32))
@@ -203,15 +209,26 @@ def test_algebra_routes_by_eligibility(monkeypatch):
         calls.clear()
         tr, dt_ = alg.trace(m), alg.dot(m, m)
         alg.trace_pair(m), alg.dot_pair(m, m)
-        # on the CPU a wrapper runs its plain version
-        want = (["slot_trace", "slot_trace_plain", "slot_dot",
-                 "slot_dot_plain"] if route == "" else
-                ["slot_trace_plain", "slot_dot_plain"])
-        assert calls == want * 2
+        assert calls == plain * 2
         dense = torch.from_numpy(d).to(dtype)
         assert abs(complex(tr) - complex(dense.diagonal().sum())) < 1e-4
         want = (dense.conj() * dense).sum()
         assert abs(complex(dt_) - complex(want)) < 1e-3
+        with monkeypatch.context() as card_route:
+            card_route.setattr(_cuda, "on_card", lambda x: True)
+            card_route.setattr(_cuda, "launch", lambda entry, group, key,
+                               *args: launched.append(key))
+            card_route.setattr(red, "_max_grid", lambda device: 4)
+            calls.clear()
+            launched.clear()
+            alg.trace(m), alg.dot(m, m)
+            alg.trace_pair(m), alg.dot_pair(m, m)
+        if takes:
+            assert calls == ["slot_trace", "slot_dot"] * 2
+            assert launched == ["slot_trace", "slot_dot", "slot_trace_pair",
+                                "slot_dot_pair"]
+        else:
+            assert calls == plain * 2 and launched == []
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -229,13 +246,6 @@ def test_algebra_plain_sums_keep_the_dtype_on_the_cpu(dt):
 # ----------------------------------------------------------------------------
 # the card
 # ----------------------------------------------------------------------------
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels of csrc/reduce.cu")
-    return torch.device("cuda")
-
 
 def _all_tensors(ac, ab, bc, bb, row_offset=0):
     """(dot, dot pair, trace, trace pair) of A (and B)."""
@@ -371,8 +381,10 @@ def test_card_energy_in_the_matrices_dtype(card):
 @pytest.mark.card
 def test_card_routes_and_refusals(card):
     """A complex CUDA matrix reduces through the plain versions and
-    launches nothing; the wrappers refuse a real dtype or block size the
-    kernels do not take."""
+    launches nothing; so do the wrappers on a real dtype or block size
+    the kernels do not take, with the plain versions' results.  An input
+    of a kind the kernels take but at fault raises: int64 col ids, A and
+    B of rows that do not match."""
     grid = ProcessGrid(device="cuda")
     rng = np.random.default_rng(2)
     d = rng.standard_normal((32, 32)) + 1j * rng.standard_normal((32, 32))
@@ -386,8 +398,21 @@ def test_card_routes_and_refusals(card):
     cols = torch.zeros((1, 4, 1), dtype=torch.int32, device=card)
     for dtype, bs in ((torch.float32, 4), (torch.float16, 8),
                       (torch.complex64, 8)):
-        blocks = torch.ones((1, 4, 1, bs, bs), dtype=dtype, device=card)
-        with pytest.raises(TypeError):
-            red.slot_dot(cols, blocks, cols, blocks, compensated=False)
-        with pytest.raises(TypeError):
-            red.slot_trace(cols, blocks, 0, compensated=True)
+        blocks = torch.randn((1, 4, 1, bs, bs), device=card).to(dtype)
+        for compensated in (False, True):
+            assert torch.equal(
+                red.slot_dot(cols, blocks, cols, blocks,
+                             compensated=compensated),
+                red.slot_dot_plain(cols, blocks, cols, blocks,
+                                   compensated=compensated))
+            assert torch.equal(
+                red.slot_trace(cols, blocks, 0, compensated=compensated),
+                red.slot_trace_plain(cols, blocks, 0,
+                                     compensated=compensated))
+    blocks = torch.ones((1, 4, 1, 8, 8), device=card)
+    with pytest.raises(TypeError, match="int32"):
+        red.slot_trace(cols.long(), blocks, 0, compensated=True)
+    with pytest.raises(ValueError, match="do not match"):
+        red.slot_dot(cols, blocks, cols[:, :2], blocks[:, :2],
+                     compensated=False)
+    assert dict(red.reductions) == before
