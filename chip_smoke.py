@@ -82,7 +82,15 @@ Phases, one line each with its seconds:
    where its competing norms lie within float32 rounding; such rows
    are counted and printed, and the largest block difference is the
    `kernels` line's max_abs_err; its launches are the timed 'high'
-   solve's).
+   solve's) and each of its merges against ``bell.add_n``
+   (``ops/merge.py``'s ``departures``: col ids exact but in rows with a
+   summed entry within rounding of the threshold, a slot of one
+   contribution bit for bit, a summed entry within 4 roundings of the
+   float64 sum; the stats exact; the largest entry difference is the
+   `slot_add_n` entry's max_abs_err, its launches the timed 'high'
+   solve's), and that solve's last three-term merge timed on a copy of
+   its inputs in a CUDA graph with the L2 flushed, beside
+   ``bell.add_n`` and its byte bound.
 9. overlap: the non-orthogonal path (profiling/overlap.py) at the
    flagship's width: the inverse square root of the overlap S of
    `systems.overlap_fn` (Taylor order 5, 'highest'; max|ISQ S ISQ^T -
@@ -290,6 +298,7 @@ from ntpoly_tpu_torch.config import EMPTY
 from ntpoly_tpu_torch.core import bell
 from ntpoly_tpu_torch.ops import _cuda
 from ntpoly_tpu_torch.ops import compact as cmp
+from ntpoly_tpu_torch.ops import merge as mrg
 from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.parallel import pmatrix as PM
@@ -973,12 +982,23 @@ def reduction_timing(xc, xb) -> None:
 
 # the compact kernel's entry in the `kernels` line
 # (launches: the timed 'high' flagship solve's; max_abs_err: the largest
-# block difference from bell.compact over compact_timing and compact_held)
+# block difference from bell.compact over compact_timing and held_slot_ops)
 COMPACT = dict(name="slot_compact", route="cuda",
                source="ntpoly_tpu_torch/csrc/compact.cu",
                replaces="none: the reference's compact is plain jnp, "
                         "ntpoly_tpu/core/bell.py:76",
                max_abs_err=0.0)
+
+
+# the merge kernel's entry in the `kernels` line
+# (launches: the timed 'high' flagship solve's; max_abs_err: the largest
+# entry difference from bell.add_n over held_slot_ops' merges; ms,
+# plain_ms and bound_ms at the last three-term merge of that solve)
+MERGE = dict(name="slot_add_n", route="cuda",
+             source="ntpoly_tpu_torch/csrc/merge.cu",
+             replaces="none: the reference's k-way merge is plain jnp, "
+                      "ntpoly_tpu/core/bell.py:188",
+             max_abs_err=0.0)
 
 
 def compact_err(got, want, rows) -> float:
@@ -1055,14 +1075,26 @@ def compact_timing(xc, xb, times) -> None:
           f"pass that never reads a kept block again)")
 
 
-def compact_held(h, isq, nel) -> dict:
-    """The flagship 'high' solve once more with each compact held: the
-    kernel's output against ``bell.compact`` on the same card tensors,
-    bit for bit but for rows whose competing norms lie within float32
-    rounding.  -> {products, kernel launches, rows differing, near-tie
-    rows}."""
-    real = cmp.slot_compact
-    seen = dict(products=0, launches=0, rows_differ=0, near_tie_rows=0)
+def held_slot_ops(h, isq, nel) -> dict:
+    """The flagship 'high' solve once more with each compact and each
+    merge held on the same card tensors: the compact kernel's output
+    against ``bell.compact``, bit for bit but for rows whose competing
+    norms lie within float32 rounding; the merge kernel's against
+    ``bell.add_n`` (``mrg.departures``): col ids exact but in rows with a
+    summed entry within 4 roundings of the threshold, a slot of one
+    contribution bit for bit, a summed entry within 4 roundings of the
+    float64 sum, and its stats ``union_fill_n`` / ``used_slots``'s.
+    Then the last three-term merge timed on a copy of its inputs (in a
+    CUDA graph, L2 flushed) beside ``bell.add_n`` and its byte bound (each
+    occupied candidate block read once, each output block written once,
+    over 3.35 TB/s), into ``MERGE``.  -> {compacts, their launches, rows
+    differing, near-tie rows, merges, their launches, rows differing,
+    rows near the threshold}."""
+    real, real_merge = cmp.slot_compact, mrg.slot_add_n
+    seen = dict(products=0, launches=0, rows_differ=0, near_tie_rows=0,
+                merges=0, merge_launches=0, merge_rows_differ=0,
+                merge_near_rows=0)
+    timed_merge = {}
 
     def held(cols, blocks, k_out, threshold=0.0):
         before = cmp.compactions["slot_compact"]
@@ -1087,18 +1119,80 @@ def compact_held(h, isq, nel) -> dict:
         seen["near_tie_rows"] += len(ties)
         return got
 
+    def held_merge(cols, blocks, coeffs, threshold=0.0, k_out=None):
+        before = mrg.merges["slot_add_n"]
+        got = real_merge(cols, blocks, coeffs, threshold, k_out)
+        seen["merge_launches"] += mrg.merges["slot_add_n"] - before
+        k = got[0].shape[-1]
+        want = bell.add_n(cols, blocks, coeffs, threshold=threshold,
+                          k_out=k)
+        bad, near, err = mrg.departures(cols, blocks, coeffs, threshold, k,
+                                        got[:2], want)
+        MERGE["max_abs_err"] = max(MERGE["max_abs_err"], err)
+        differ = (got[0] != want[0]).flatten(0, -2).any(dim=-1)
+        stats = [int(bell.union_fill_n(cols).amax()),
+                 int(bell.used_slots(got[0]).amax())]
+        if len(bad) or got[2].tolist() != stats:
+            raise AssertionError(
+                f"merge {seen['merges']} of the flagship solve: rows "
+                f"{bad.tolist()[:8]} depart from bell.add_n beyond the sum "
+                f"order, or stats {got[2].tolist()} are not {stats}")
+        seen["merges"] += 1
+        seen["merge_rows_differ"] += int(differ.sum())
+        seen["merge_near_rows"] += len(near)
+        if len(cols) == 3:
+            timed_merge.update(
+                args=([c.clone() for c in cols], [b.clone() for b in blocks],
+                      [a.clone() if torch.is_tensor(a) else a
+                       for a in coeffs], threshold, k))
+        return got
+
     params = flagship_params(trs4_tiers.CONFIGS["flagship"]["k_out"],
                              "pallas_band", "high")
-    cmp.slot_compact = held
+    cmp.slot_compact, mrg.slot_add_n = held, held_merge
     try:
         solve(h, isq, nel, params)
     finally:
-        cmp.slot_compact = real
-    print("  'high' solve with every compact held: " + json.dumps(seen))
+        cmp.slot_compact, mrg.slot_add_n = real, real_merge
+    print("  'high' solve with every compact and merge held: "
+          + json.dumps(seen))
     if not seen["products"] or seen["launches"] != seen["products"]:
         raise AssertionError("the flagship solve's compacts did not all "
                              "launch the kernel")
+    if not seen["merges"] or seen["merge_launches"] != seen["merges"]:
+        raise AssertionError("the flagship solve's merges did not all "
+                             "launch the kernel")
+    if "args" not in timed_merge:
+        raise AssertionError("the flagship solve ran no three-term merge")
+    merge_timing(*timed_merge.pop("args"))
     return seen
+
+
+def merge_timing(cols, blocks, coeffs, threshold, k_out) -> None:
+    """One merge of the flagship solve (``held_slot_ops``) timed in a CUDA
+    graph with the L2 flushed before each call, beside ``bell.add_n`` and
+    the byte bound at its inputs, into ``MERGE``."""
+    rows = cols[0].numel() // cols[0].shape[-1]
+    bs = blocks[0].shape[-1]
+    blk = bs * bs * blocks[0].element_size()
+    nbytes = (sum(int((c != EMPTY).sum()) for c in cols) * blk
+              + rows * k_out * blk + sum(4 * c.numel() for c in cols)
+              + 4 * rows * k_out)
+    ms = flushed_ms(lambda: mrg.slot_add_n(cols, blocks, coeffs, threshold,
+                                           k_out), 5)
+    eager = lowk.cuda_time(lambda: mrg.slot_add_n(cols, blocks, coeffs,
+                                                  threshold, k_out), 10)
+    pms = lowk.cuda_time(lambda: bell.add_n(cols, blocks, coeffs,
+                                            threshold=threshold,
+                                            k_out=k_out), 3)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    MERGE.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by="bytes")
+    widths = " + ".join(str(c.shape[-1]) for c in cols)
+    print(f"  slot_add_n {rows} x ({widths}) -> {k_out} slots bs {bs} "
+          f"{blocks[0].dtype}: kernel {ms:.3f} ms (graph, L2 flushed; "
+          f"eager {eager:.3f} ms), plain {pms:.3f} ms, bound {bound:.3f} "
+          f"ms (bytes, {nbytes / 1e9:.3f} GB, {100 * bound / ms:.0f}% "
+          f"reached)")
 
 
 def replayed_ms(fn, reps: int) -> float:
@@ -1519,12 +1613,14 @@ def phase_flagship():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters("compactions")
+        reset_counters("merges")
         t0 = time.perf_counter()
         rho, energy, mu, n, counts = solve(h, isq, nel, params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if precision == "high":
             COMPACT["launches"] = cmp.compactions["slot_compact"]
+            MERGE["launches"] = mrg.merges["slot_add_n"]
         peak = torch.cuda.max_memory_allocated()
         print(f"  '{precision}': {n} iterations, {wall:.3f} s wall, "
               f"{wall / n:.4f} s per iteration, energy {energy!r}, mu "
@@ -1552,7 +1648,7 @@ def phase_flagship():
                              "the split pass")
     print(f"  'high' against 'highest': {result['high'][0]:.3f} s against "
           f"{result['highest'][0]:.3f} s")
-    compact_held(h, isq, nel)
+    held_slot_ops(h, isq, nel)
     return result["high"][1]
 
 
@@ -2742,6 +2838,9 @@ def main() -> int:
             entry["launches_predicated"] = pred[entry["name"]]
     # the compact kernels: their calls in the timed 'high' flagship solve
     kernels.append(dict(COMPACT, **times["slot_compact"], library_ms=None))
+    # the merge kernel: its calls in the timed 'high' flagship solve, timed
+    # at that solve's last three-term merge
+    kernels.append(dict(MERGE, library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     _result()

@@ -239,9 +239,10 @@ def render_kernels() -> str:
            "`pl.pallas_call` has a hand-written counterpart for NVIDIA "
            "Hopper (`sm_90a`) in `ntpoly_tpu_torch/csrc/`, built by "
            "`ntpoly_tpu_torch.ops._cuda` with `nvcc` at first use (never "
-           "at import); so do the slot reductions and the compact, which "
-           "the JAX package leaves to XLA.  Each is launched, through "
-           "`ntpoly_tpu_torch.ops._cuda.launch`, by a wrapper in one of "
+           "at import); so do the slot reductions, the compact and the "
+           "k-way merge, which the JAX package leaves to XLA.  Each is "
+           "launched, through `ntpoly_tpu_torch.ops._cuda.launch`, by a "
+           "wrapper in one of "
            + ", ".join(f"`{mod.__name__}`" for mod in mods)
            + ", which launches it for CUDA tensors and runs its plain "
            "PyTorch version for CPU tensors; each launch adds one under "

@@ -11,10 +11,10 @@ build raises.  A wrapper checks its operands here (:func:`operands`,
 or :func:`slot_operands` for the slot kernels) and launches through
 :func:`launch`.
 
-CPU tensors run the plain versions.  On the card the slot reductions
-and the compact route by the kind of data (:func:`takes`): their
-kernels where the dtype and block size are ones the kernels take, their
-plain versions for complex data and other block sizes, as the two
+CPU tensors run the plain versions.  On the card the slot reductions,
+the compact and the merge route by the kind of data (:func:`takes`):
+their kernels where the dtype and block size are ones the kernels take,
+their plain versions for complex data and other block sizes, as the two
 compute the same function; an input at fault (ids not int32, operands
 on two devices or of shapes that do not match) raises.  The SpGEMM
 wrappers raise on every input the kernels do not take: for those shapes
@@ -72,6 +72,8 @@ _SIGNATURES = {
     "ntp_slot_trace": ((_P,) * 4 + (_L,) * 2 + (_I,) * 7 + (_P,), _REAL),
     "ntp_slot_compact": ((_P,) * 7 + (_L,) * 2 + (_I,) * 4 + (_D, _P),
                          _REAL),
+    "ntp_slot_add_n": ((_P,) * 15 + (_L,) * 8 + (_I,) * 8 + (_D,) * 5
+                       + (_P,), _REAL),
 }
 
 _lib = None
@@ -205,11 +207,12 @@ def route(x: torch.Tensor, what: str) -> bool:
 
 def takes(dtype, blocks: torch.Tensor) -> bool:
     """The route of the slot operations (``ops/reduce.py``,
-    ``ops/compact.py``): their kernels for CUDA ``blocks`` computed in a
-    dtype and at a block size the kernels take (:func:`eligible`), their
-    plain versions for every other input.  The route reads the kind of
-    data alone; a kernel input at fault (ids not int32, operands on two
-    devices, shapes that do not match) raises in :func:`slot_operands`."""
+    ``ops/compact.py``, ``ops/merge.py``): their kernels for CUDA
+    ``blocks`` computed in a dtype and at a block size the kernels take
+    (:func:`eligible`), their plain versions for every other input.  The
+    route reads the kind of data alone; a kernel input at fault (ids not
+    int32, operands on two devices, shapes that do not match) raises in
+    :func:`slot_operands`."""
     return on_card(blocks) and eligible(dtype, blocks.shape[-1])
 
 

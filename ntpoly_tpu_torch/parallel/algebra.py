@@ -44,6 +44,7 @@ from ..config import EMPTY
 from ..core import bell
 from ..ops import _cuda
 from ..ops import compact as cmp
+from ..ops import merge as mrg
 from ..ops import reduce as red
 from ..ops import spgemm as sp
 from ..utils import trace as tr
@@ -419,15 +420,12 @@ def matmul(a: PSMatrix, b: PSMatrix, alpha=1.0, threshold=0.0,
 # ----------------------------------------------------------------------------
 
 def _increment_n(mats, coeffs, threshold, k_out: int):
-    cols_l = [m.col_ids for m in mats]
-    blocks_l = [m.blocks for m in mats]
-    cc, cb = bell.add_n(cols_l, blocks_l, coeffs, threshold=threshold,
-                        k_out=k_out)
-    fill = bell.union_fill_n(cols_l).amax()
-    used = bell.used_slots(cc).amax()
+    cc, cb, stats = mrg.slot_add_n([m.col_ids for m in mats],
+                                   [m.blocks for m in mats], coeffs,
+                                   threshold=threshold, k_out=k_out)
     a = mats[0]
     return (PSMatrix(cc, cb, a.dim, a.bs, a.grid),
-            a.grid.group("all").max(torch.stack([fill, used])))
+            a.grid.group("all").max(stats))
 
 
 def increment(a: PSMatrix, b: PSMatrix, alpha=1.0, beta=1.0, threshold=0.0,

@@ -172,6 +172,7 @@ def test_kernels_page(generated):
         assert f"### `ops.spgemm.{name}(" in page
     for name in ("slot_dot", "slot_trace"):
         assert f"### `ops.reduce.{name}(" in page
+    assert "### `ops.merge.slot_add_n(" in page
     assert "| `'high'` | `'high'` | `'highest'` |" in page
 
 

@@ -4,11 +4,11 @@
 With the device predicate ``_cuda.on_card`` patched to take CPU tensors
 and ``_cuda.launch`` replaced by a recorder, each wrapper runs its kernel
 path: band, general (with and without a device predicate ``run``),
-stream, window, uniform, split, dot, trace and compact.  Every launch it
-makes names a C entry of ``_SIGNATURES`` with one of that entry's dtype
-suffixes and passes as many pointers, ints and floats as the entry's
-ctypes signature declares, each of its kind; each wrapper counts one
-launch under its own key in its own counter group.  ``_cuda.launch``
+stream, window, uniform, split, dot, trace, compact and merge.  Every
+launch it makes names a C entry of ``_SIGNATURES`` with one of that
+entry's dtype suffixes and passes as many pointers, ints and floats as
+the entry's ctypes signature declares, each of its kind; each wrapper
+counts one launch under its own key in its own counter group.  ``_cuda.launch``
 itself is held to a stand-in library: the stream last, None as a null
 pointer, a CUDA error raised and not counted.
 """
@@ -21,6 +21,7 @@ import torch
 from _torch_port import band_ell
 from ntpoly_tpu_torch.ops import _cuda
 from ntpoly_tpu_torch.ops import compact as cmp
+from ntpoly_tpu_torch.ops import merge as mrg
 from ntpoly_tpu_torch.ops import reduce as red
 from ntpoly_tpu_torch.ops import spgemm as sp
 from ntpoly_tpu_torch.utils import trace
@@ -93,6 +94,11 @@ def _dot(compensated):
     return red.slot_dot(c, b, c[:, :1], b[:, :1], compensated=compensated)
 
 
+def _merge(dtype, n, coeffs, threshold=0.0):
+    c, b = _operands(dtype)
+    return mrg.slot_add_n([c] * n, [b] * n, coeffs, threshold, 3)
+
+
 def _trace(compensated):
     c, b = _operands(F64)
     return red.slot_trace(c, b, 0, compensated=compensated)
@@ -131,6 +137,11 @@ CASES = {
                    {"reductions": {"slot_trace_pair": 1}}),
     "compact": (lambda: cmp.slot_compact(*_operands(F32), 1, 1e-3),
                 {"compactions": {"slot_compact": 1}}),
+    "merge": (lambda: _merge(F32, 2, (1.0, -0.5)),
+              {"merges": {"slot_add_n": 1}}),
+    "merge_device_scalars": (lambda: _merge(
+        F64, 4, [torch.tensor(0.5, dtype=F64)] * 4, threshold=1e-3),
+        {"merges": {"slot_add_n": 1}}),
 }
 
 
@@ -205,6 +216,31 @@ FAULTS = {
         c, b[:8], 0, compensated=True), ValueError, "do not match"),
     "compact_blocks_differ": (lambda c, b: cmp.slot_compact(
         c, b[:8], 1), ValueError, "do not match"),
+    "merge_rows_differ": (lambda c, b: mrg.slot_add_n(
+        [c, c[:8]], [b, b[:8]], (1.0, 1.0)), ValueError, "do not match"),
+    "merge_blocks_differ": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b[..., :4, :4]], (1.0, 1.0)), ValueError,
+        "do not match"),
+    "merge_two_devices": (lambda c, b: mrg.slot_add_n(
+        [c, c.to("meta")], [b, b.to("meta")], (1.0, 1.0)), ValueError,
+        "meta"),
+    "merge_ids_int64": (lambda c, b: mrg.slot_add_n(
+        [c.long(), c.long()], [b, b], (1.0, 1.0)), TypeError, "int32"),
+    "merge_five_operands": (lambda c, b: mrg.slot_add_n(
+        [c] * 5, [b] * 5, (1.0,) * 5), ValueError, "1 to 4 operands"),
+    "merge_threshold_tensor": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b], (1.0, 1.0), torch.tensor(1e-3)), ValueError,
+        "threshold"),
+    "merge_k_out_zero": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b], (1.0, 1.0), 0.0, 0), ValueError, "k_out"),
+    "merge_coeff_two_elements": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b], (1.0, torch.ones(2))), ValueError,
+        "one real element"),
+    "merge_coeff_other_device": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b], (1.0, torch.ones((), device="meta"))), ValueError,
+        "meta"),
+    "merge_coeff_complex": (lambda c, b: mrg.slot_add_n(
+        [c, c], [b, b], (1.0, 1j)), ValueError, "real number"),
     "band_misaligned": (lambda c, b: sp.spgemm_band(
         c, _misaligned(b), c, b, torch.zeros((R, KA), dtype=torch.int32),
         span=3, precision="highest", **KW), ValueError, "16 bytes"),
@@ -225,10 +261,10 @@ def _misaligned(x):
 
 @pytest.mark.parametrize("case", FAULTS)
 def test_fault_raises_and_launches_nothing(recorded, case):
-    """On the card's route the reductions and the compact take the
-    kernel path for every real float32/float64 input at an eligible
-    block size, so an input at fault raises there (as the SpGEMM
-    wrappers' do) and never quietly runs the plain version; a block
+    """On the card's route the reductions, the compact and the merge
+    take the kernel path for every real float32/float64 input at an
+    eligible block size, so an input at fault raises there (as the
+    SpGEMM wrappers' do) and never quietly runs the plain version; a block
     operand that does not start on 16 bytes raises in the SpGEMM
     wrappers and the split pass."""
     call, error, message = FAULTS[case]

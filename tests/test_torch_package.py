@@ -81,7 +81,8 @@ def test_cuda_build_command_without_nvcc(tmp_path):
     srcs = {Path(cmd[-1]).name for cmd in compiles}
     assert srcs == {"spgemm_band.cu", "spgemm_general.cu",
                     "spgemm_stream.cu", "spgemm_window.cu",
-                    "spgemm_uniform.cu", "reduce.cu", "compact.cu"}
+                    "spgemm_uniform.cu", "reduce.cu", "compact.cu",
+                    "merge.cu"}
     assert "-shared" in link and str(tmp_path / "lib.so") in link
     assert sorted(c for c in link if c.endswith(".o")) == sorted(
         cmd[cmd.index("-o") + 1] for cmd in compiles)
@@ -101,9 +102,9 @@ def test_cuda_sources_name_the_kernels_they_replace():
     head = (csrc / "spgemm_uniform.cu").read_text().split("#include")[0]
     for fn in ("_kernel_v6", "_kernel_v7", "_kernel_v9", "_kernel_v10"):
         assert f"profile_lowk_r5.py:{fn} " in head
-    # the reductions and the compact replace no TPU kernel: the
-    # reference's are plain jnp
-    for name in ("reduce.cu", "compact.cu"):
+    # the reductions, the compact and the merge replace no TPU kernel:
+    # the reference's are plain jnp
+    for name in ("reduce.cu", "compact.cu", "merge.cu"):
         head = " ".join((csrc / name).read_text().split("#include")[0]
                         .replace("//", " ").split())
         assert "Replaces no TPU kernel" in head
